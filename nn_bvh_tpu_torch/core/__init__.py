@@ -1,0 +1,1 @@
+"""core/ of the torch port (see the package docstring)."""

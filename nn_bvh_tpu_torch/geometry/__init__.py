@@ -1,0 +1,1 @@
+"""geometry/ of the torch port (see the package docstring)."""

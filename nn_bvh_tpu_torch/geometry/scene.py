@@ -1,0 +1,306 @@
+"""Scene compilation: host builder -> SoA tables (port of the subset of
+nn_bvh_tpu/geometry/scene.py the bench scene uses).
+
+`SceneBuilder.build()` returns a `CompiledScene` of host numpy arrays, laid
+out exactly as the JAX package lays them out (same material/light tags, same
+parameter columns, same fused `tri_shade` record). `to_device` turns it into
+float32/int32 tensors on one device. `scene_from_numpy` carries a JAX-built
+scene and BVH across as numpy arrays, so tests render the very same tables
+in both packages.
+
+In this slice: diffuse and conductor materials, per-triangle area lights and
+uniform infinite lights. Everything else raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import rgb2spec
+
+# material tags (same values as the JAX package)
+MAT_DIFFUSE = 0
+MAT_CONDUCTOR = 1
+# light tags (same values as the JAX package)
+LIGHT_UNIFORM_INFINITE = 2
+LIGHT_AREA_TRI = 3
+LIGHT_SPHERE_AREA = 9
+
+N_MAT_PARAMS = 12   # [rough_u, rough_v, eta, k, transmittance, texture, mix_a,
+#  mix_b, mix_amount, coat_roughness, eta_tab, k_tab]
+N_LIGHT_PARAMS = 12  # AREA_TRI: [0]=tri_index [1]=two_sided
+
+SLICE_MATERIALS = (MAT_DIFFUSE, MAT_CONDUCTOR)
+SLICE_LIGHTS = (LIGHT_UNIFORM_INFINITE, LIGHT_AREA_TRI)
+
+_INT_FIELDS = ("tri_mat", "tri_light", "mat_type", "light_type")
+
+
+class CompiledScene(NamedTuple):
+    """Frozen scene tables: host numpy after `build`, tensors after
+    `to_device`. Triangles are padded to a multiple of 128 with degenerate
+    all-zero triangles (no intersector accepts det == 0)."""
+
+    tri_p: object        # (N, 3, 3) f32 vertex positions
+    tri_n: object        # (N, 3, 3) f32 shading normals
+    tri_uv: object       # (N, 3, 2) f32
+    tri_mat: object      # (N,) i32 material id (-1 = none)
+    tri_light: object    # (N,) i32 area-light id (-1 = not emissive)
+    n_tris: int          # unpadded triangle count
+    mat_type: object     # (M,) i32
+    mat_coeffs: object   # (M, 3) f32 sigmoid-poly coefficients of base color
+    mat_scale: object    # (M,) f32
+    mat_params: object   # (M, N_MAT_PARAMS) f32
+    light_type: object   # (L,) i32
+    light_pos: object    # (L, 3) f32
+    light_coeffs: object  # (L, 3) f32
+    light_scale: object  # (L,) f32
+    light_params: object  # (L, N_LIGHT_PARAMS) f32
+    n_lights: int
+    bounds: object       # (2, 3) f32
+    tri_shade: object    # (N, 28) f32 fused shading record: v0 v1 v2 | n0 n1 n2
+    #   | uv0 uv1 uv2 | mat_id | light_id | med_inside | med_outside
+
+    def replace(self, **kw) -> "CompiledScene":
+        return self._replace(**kw)
+
+
+def host(x) -> np.ndarray:
+    """Host numpy view of a numpy array or tensor (set-up code only)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def make_tri_shade(scene: CompiledScene) -> np.ndarray:
+    tp = host(scene.tri_p).astype(np.float32)
+    n = len(tp)
+    out = np.zeros((n, 28), np.float32)
+    out[:, 0:9] = tp.reshape(n, 9)
+    out[:, 9:18] = host(scene.tri_n).astype(np.float32).reshape(n, 9)
+    out[:, 18:24] = host(scene.tri_uv).astype(np.float32).reshape(n, 6)
+    out[:, 24] = host(scene.tri_mat).astype(np.float32)
+    out[:, 25] = host(scene.tri_light).astype(np.float32)
+    out[:, 26:28] = -1.0  # no participating media in this slice
+    return out
+
+
+def to_device(scene: CompiledScene, device) -> CompiledScene:
+    """Upload every table once, as float32 / int32 tensors on `device`."""
+    def up(name, v):
+        if isinstance(v, (int, np.integer)) and name.startswith("n_"):
+            return int(v)
+        dt = torch.int32 if name in _INT_FIELDS else torch.float32
+        if not isinstance(v, torch.Tensor):
+            v = torch.as_tensor(np.asarray(v))
+        return v.to(device=device, dtype=dt).contiguous()
+
+    return CompiledScene(**{k: up(k, v) for k, v in scene._asdict().items()})
+
+
+def check_slice(fields: dict) -> None:
+    """Raise NotImplementedError for scene features this slice cannot render
+    (keys and values as in the JAX CompiledScene)."""
+    def has(name):
+        v = fields.get(name)
+        return v is not None and np.asarray(v).size > 0
+
+    bad_mats = set(np.unique(host(fields["mat_type"])).tolist()) - set(SLICE_MATERIALS)
+    if bad_mats:
+        raise NotImplementedError(
+            f"material tags {sorted(bad_mats)} are not ported yet "
+            "(ROADMAP queue 1, item 2: remaining materials)")
+    bad_lights = set(np.unique(host(fields["light_type"])).tolist()) - set(SLICE_LIGHTS)
+    if bad_lights:
+        raise NotImplementedError(
+            f"light tags {sorted(bad_lights)} are not ported yet "
+            "(ROADMAP queue 1, item 3: remaining lights)")
+    if int(fields.get("n_quadrics") or 0):
+        raise NotImplementedError("analytic quadrics are not ported yet "
+                                  "(ROADMAP queue 1, item 3)")
+    if int(fields.get("n_media") or 0):
+        raise NotImplementedError("participating media are not ported yet "
+                                  "(ROADMAP queue 1, item 1: volpath)")
+    if has("tri_p_end"):
+        raise NotImplementedError("motion blur is not ported yet "
+                                  "(ROADMAP queue 1, item 3)")
+    if has("tex_atlas") and np.asarray(fields["tex_atlas"]).size > 4:
+        raise NotImplementedError("textures are not ported yet "
+                                  "(ROADMAP queue 1, item 4)")
+    if has("env_luminance") and np.asarray(fields["env_luminance"]).size > 1:
+        raise NotImplementedError("environment maps are not ported yet "
+                                  "(ROADMAP queue 1, item 3)")
+
+
+def scene_from_numpy(fields: dict, bvh_fields: dict, device):
+    """JAX CompiledScene + DeviceBVH, given as dicts of numpy arrays
+    (np.asarray of each field) -> (port CompiledScene, port DeviceBVH), both
+    as tensors on `device`. The differentiable parameters (mat_coeffs,
+    light_scale) come across like every other table."""
+    from ..accel.traverse import DeviceBVH
+
+    check_slice(fields)
+    sc = CompiledScene(**{k: fields[k] for k in CompiledScene._fields})
+    bvh = DeviceBVH(
+        node_lo=torch.as_tensor(host(bvh_fields["node_lo"]), device=device).float(),
+        node_hi=torch.as_tensor(host(bvh_fields["node_hi"]), device=device).float(),
+        node_meta=torch.as_tensor(host(bvh_fields["node_meta"]), device=device).int(),
+        n_nodes=int(bvh_fields["n_nodes"]))
+    return to_device(sc, device), bvh
+
+
+class SceneBuilder:
+    """Accumulates meshes/materials/lights on the host, then compiles."""
+
+    def __init__(self):
+        self._tri_p, self._tri_n, self._tri_uv, self._tri_mat = [], [], [], []
+        self._tri_emit = []   # (rgb, scale, two_sided) or None per mesh
+        self._materials = []
+        self._lights = []
+
+    def add_material(self, kind: str = "diffuse", reflectance=(0.5, 0.5, 0.5),
+                     roughness: float = 0.0, eta: float = 1.5,
+                     k: float = 3.9) -> int:
+        kinds = {"diffuse": MAT_DIFFUSE, "conductor": MAT_CONDUCTOR}
+        if kind not in kinds:
+            raise NotImplementedError(
+                f"material {kind!r} is not ported yet "
+                "(ROADMAP queue 1, item 2: remaining materials)")
+        # the JAX builder's defaults for the columns this slice does not use:
+        # transmittance 0, texture -1, mix (-1, -1, 0.5), coat 0, tables -1
+        params = np.array([roughness, roughness, eta, k, 0.0, -1.0, -1.0, -1.0,
+                           0.5, 0.0, -1.0, -1.0], np.float32)
+        self._materials.append(dict(
+            type=kinds[kind], reflectance=np.asarray(reflectance, np.float32),
+            params=params))
+        return len(self._materials) - 1
+
+    def add_uniform_infinite_light(self, radiance_rgb=(1, 1, 1),
+                                   scale: float = 1.0) -> int:
+        self._lights.append(dict(
+            type=LIGHT_UNIFORM_INFINITE, pos=np.zeros(3, np.float32),
+            rgb=np.asarray(radiance_rgb, np.float32), scale=scale,
+            params=np.zeros(N_LIGHT_PARAMS, np.float32)))
+        return len(self._lights) - 1
+
+    def add_mesh(self, vertices, faces, material: int, normals=None,
+                 emission_rgb=None, emission_scale: float = 1.0,
+                 two_sided: bool = False) -> None:
+        """Indexed triangle mesh (render space, no uvs: transforms and
+        textures come with the parser and texture items of the ROADMAP);
+        with emission_rgb every triangle becomes a diffuse area light."""
+        vertices = np.asarray(vertices, np.float32)
+        faces = np.asarray(faces, np.int64)
+        p = vertices[faces]
+        if normals is not None:
+            n = np.asarray(normals, np.float32)[faces]
+        else:
+            ng = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+            ng /= np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-20)
+            n = np.repeat(ng[:, None, :], 3, axis=1)
+        self._tri_p.append(p)
+        self._tri_n.append(n.astype(np.float32))
+        self._tri_uv.append(np.zeros((len(faces), 3, 2), np.float32))
+        self._tri_mat.append(np.full(len(faces), material, np.int32))
+        self._tri_emit.append(
+            None if emission_rgb is None else
+            (np.asarray(emission_rgb, np.float32), float(emission_scale), two_sided))
+
+    def add_sphere(self, center, radius, material, n_theta=32, n_phi=64,
+                   emission_rgb=None):
+        """Tessellated sphere (same tessellation as the JAX builder)."""
+        if emission_rgb is not None:
+            raise NotImplementedError("sphere area lights are not ported yet "
+                                      "(ROADMAP queue 1, item 3)")
+        th = np.linspace(0, np.pi, n_theta + 1)
+        ph = np.linspace(0, 2 * np.pi, n_phi + 1)
+        tt, pp = np.meshgrid(th, ph, indexing="ij")
+        verts = np.stack([np.sin(tt) * np.cos(pp), np.sin(tt) * np.sin(pp),
+                          np.cos(tt)], -1).reshape(-1, 3)
+        normals = verts.copy()
+        verts = verts * radius + np.asarray(center, np.float32)
+        idx = lambda i, j: i * (n_phi + 1) + j
+        faces = []
+        for i in range(n_theta):
+            for j in range(n_phi):
+                a, b, c, d = idx(i, j), idx(i + 1, j), idx(i + 1, j + 1), idx(i, j + 1)
+                if i > 0:
+                    faces.append([a, b, d])
+                if i < n_theta - 1:
+                    faces.append([b, c, d])
+        self.add_mesh(np.asarray(verts, np.float32), np.asarray(faces), material,
+                      normals=normals.astype(np.float32))
+
+    def add_quad(self, p00, p10, p11, p01, material, **kw):
+        verts = np.asarray([p00, p10, p11, p01], np.float32)
+        self.add_mesh(verts, np.asarray([[0, 1, 2], [0, 2, 3]]), material, **kw)
+
+    def build(self) -> CompiledScene:
+        if not self._tri_p:
+            raise ValueError("empty scene")
+        tri_p = np.concatenate(self._tri_p)
+        tri_n = np.concatenate(self._tri_n)
+        tri_uv = np.concatenate(self._tri_uv)
+        tri_mat = np.concatenate(self._tri_mat)
+        n = len(tri_p)
+
+        # per-mesh emission -> one area light per triangle
+        tri_light = np.full(n, -1, np.int32)
+        lights = list(self._lights)
+        off = 0
+        for chunk, emit in zip(self._tri_p, self._tri_emit):
+            if emit is not None:
+                rgb, sc, two = emit
+                for k in range(len(chunk)):
+                    tri_light[off + k] = len(lights)
+                    params = np.zeros(N_LIGHT_PARAMS, np.float32)
+                    params[0] = off + k
+                    params[1] = 1.0 if two else 0.0
+                    lights.append(dict(type=LIGHT_AREA_TRI, pos=np.zeros(3, np.float32),
+                                       rgb=rgb, scale=sc, params=params))
+            off += len(chunk)
+
+        # pad to a lane multiple with degenerate triangles
+        pad = (-n) % 128
+        if pad:
+            tri_p = np.concatenate([tri_p, np.zeros((pad, 3, 3), np.float32)])
+            tri_n = np.concatenate([tri_n, np.zeros((pad, 3, 3), np.float32)])
+            tri_n[n:, :, 2] = 1.0
+            tri_uv = np.concatenate([tri_uv, np.zeros((pad, 3, 2), np.float32)])
+            tri_mat = np.concatenate([tri_mat, np.full(pad, -1, np.int32)])
+            tri_light = np.concatenate([tri_light, np.full(pad, -1, np.int32)])
+
+        if not self._materials:
+            self.add_material("diffuse")
+        mat_type = np.array([m["type"] for m in self._materials], np.int32)
+        refl = np.stack([m["reflectance"] for m in self._materials])
+        mat_coeffs, mat_scale = rgb2spec.rgb_to_coeffs_host(refl)
+        mat_params = np.stack([m["params"] for m in self._materials])
+
+        if lights:
+            light_type = np.array([l["type"] for l in lights], np.int32)
+            light_pos = np.stack([l["pos"] for l in lights])
+            lc, ls = rgb2spec.rgb_to_coeffs_host(np.stack([l["rgb"] for l in lights]))
+            light_scale = np.array([l["scale"] for l in lights], np.float32) * ls
+            light_params = np.stack([l["params"] for l in lights])
+        else:
+            light_type = np.zeros(0, np.int32)
+            light_pos = np.zeros((0, 3), np.float32)
+            lc = np.zeros((0, 3), np.float32)
+            light_scale = np.zeros(0, np.float32)
+            light_params = np.zeros((0, N_LIGHT_PARAMS), np.float32)
+
+        lo = tri_p[:n].reshape(-1, 3).min(0)
+        hi = tri_p[:n].reshape(-1, 3).max(0)
+        out = CompiledScene(
+            tri_p=tri_p, tri_n=tri_n, tri_uv=tri_uv, tri_mat=tri_mat,
+            tri_light=tri_light, n_tris=n,
+            mat_type=mat_type, mat_coeffs=mat_coeffs, mat_scale=mat_scale,
+            mat_params=mat_params,
+            light_type=light_type, light_pos=light_pos, light_coeffs=lc,
+            light_scale=light_scale, light_params=light_params,
+            n_lights=int(len(lights)), bounds=np.stack([lo, hi]), tri_shade=None)
+        return out.replace(tri_shade=make_tri_shade(out))

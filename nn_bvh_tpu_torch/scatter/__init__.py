@@ -1,0 +1,1 @@
+"""scatter/ of the torch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""wavefront/ of the torch port (see the package docstring)."""
