@@ -9,8 +9,10 @@ Conventions of the port:
 - It imports torch and numpy, never jax and never `nn_bvh_tpu` (every route
   into that package loads JAX). The numpy host code the slice needs (scene
   builder, SAH builder, BVH4 collapse) is carried over as numpy.
-- Devices are explicit: every public entry takes a `device` or tensors that
-  already sit on one. Nothing falls back to the CPU when CUDA is missing.
+- Entry points run on the CUDA card unless the caller asks for the CPU,
+  with `device="cpu"` or with tensors that already sit there
+  (`devices.resolve_device`). Nothing falls back to the CPU when CUDA is
+  missing: they raise.
 - Dtypes are explicit: every tensor the port makes is float32, int32 or
   int64 on purpose (host numpy arrays are float64 by default and
   `torch.from_numpy` keeps that).
@@ -19,8 +21,9 @@ Conventions of the port:
 - Hand-written CUDA kernels live in `csrc/` and are built at first use by
   `kernels.load` into `build/kernels/` at the repository root.
 
-What this slice covers is the bench path: the Path integrator (MIS + RR)
-over diffuse/conductor materials and area lights, with the BVH4 traversal
-as a CUDA kernel. Anything else raises NotImplementedError naming the
-ROADMAP item that ports it.
+What is ported is the bench path: the Path integrator (MIS + RR) over
+diffuse/conductor materials and area lights, with every traversal backend
+of the JAX package (BVH4, binary, deep-stack binary, BVH8) as a CUDA kernel,
+and the traversal profiler (`tools/trav_prof.py`). Anything else raises
+NotImplementedError naming the ROADMAP item that ports it.
 """

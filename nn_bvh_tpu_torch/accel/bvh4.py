@@ -97,12 +97,12 @@ def collapse_bvh4(node_lo: np.ndarray, node_hi: np.ndarray,
 
 
 def wide_depth(wide_meta: np.ndarray) -> int:
-    """Depth of the wide tree (children have larger indices than parents)."""
+    """Depth of a wide tree of any width (children have larger indices than
+    parents); a lone root has depth 1."""
     W = len(wide_meta)
     depth = np.zeros(W, np.int32)
     for w in range(W):
-        for k in range(WIDTH):
-            m = wide_meta[w, k]
+        for m in wide_meta[w]:
             if m > 0 and depth[m] < depth[w] + 1:
                 depth[m] = depth[w] + 1
     return int(depth.max()) + 1 if W else 1

@@ -1,66 +1,140 @@
 """Traversal-backend dispatch (port of nn_bvh_tpu/accel/dispatch.py) and
-the ray re-sort key (nn_bvh_tpu/accel/pallas_traverse.py:431-458).
+the ray re-sort key and sorted intersector
+(nn_bvh_tpu/accel/pallas_traverse.py:431-481).
 
-`make_intersectors` packs the BVH4 tables once on the host and uploads them
-to `device`. The backend follows the device:
+`make_intersectors` packs one backend's tables once on the host and uploads
+them to the device. Every traversal backend of the JAX package has a
+hand-written CUDA kernel here, and each kernel a plain torch version:
 
-- CUDA -> "cuda_bvh4": the hand-written kernel (accel/bvh4_kernel.py); the
-  integrator re-sorts its lane state once per bounce;
-- CPU  -> "plain": the plain torch traversal, no re-sort (the counterpart of
-  the JAX package's XLA backend).
+| backend (CUDA)     | plain twin          | JAX backend (TPU kernel)                   |
+| cuda_bvh4          | plain               | bvh4 (pallas_bvh4._traverse_bvh4)          |
+| cuda_binary        | plain_binary        | pallas_vmem (pallas_traverse, stack 64)    |
+| cuda_binary_deep   | plain_binary_deep   | pallas_hbm (hbm_traverse, stack 128)       |
+| cuda_bvh8          | plain_bvh8          | pallas_bvh8 (pallas_bvh8._traverse_bvh8)   |
 
-`backend="plain"` on CUDA exists so tests and chip_smoke.py can compare the
-kernel with its plain version; it is never chosen automatically.
+With `backend=None` the backend follows the device: the plain BVH4
+traversal ("plain", the counterpart of the JAX package's XLA backend) on the
+CPU, "cuda_bvh4" on CUDA, or the kernel that `BVH_BACKEND=bvh4|binary|hbm|
+bvh8` names, as the JAX package's `BVH_BACKEND` does on a non-CPU backend
+(dispatch.py:194-225). The TPU picks among its kernels by VMEM budgets
+(pallas_bvh4.py:51-54, pallas_traverse.py:52) and falls back to the HBM
+kernel when a scene does not fit; an H100 reads every table from device
+memory through its caches, so those budgets have no counterpart and the
+automatic choice on CUDA is always "cuda_bvh4". Asking for a CUDA backend on
+the CPU raises.
+
+The plain backends on CUDA exist so tests and chip_smoke.py can compare each
+kernel with its plain version; they are never chosen automatically. The
+wavefront integrator re-sorts its lane state once per bounce for every CUDA
+backend; `sort=True` wraps the callables in the same key's sort -> traverse
+-> unsort instead, for standalone batches.
 """
 
 from __future__ import annotations
 
+import functools
+import os
+
 import numpy as np
 import torch
 
-from . import bvh4, bvh4_kernel
-from .traverse import traverse_bvh4_plain
+from . import binary, binary_kernel, bvh4, bvh4_kernel, bvh8, bvh8_kernel
+from .traverse import Hit, traverse_binary_plain, traverse_bvh4_plain, traverse_bvh8_plain
 from ..core.rng import M32
+from ..devices import resolve_device
 from ..geometry.scene import host
 
-BACKENDS = ("cuda_bvh4", "plain")
+# backend -> (node layout, traversal function)
+_BACKENDS = {
+    "cuda_bvh4": ("bvh4", bvh4_kernel.traverse),
+    "cuda_binary": ("binary", functools.partial(binary_kernel.traverse, stack=64)),
+    "cuda_binary_deep": ("binary_deep", functools.partial(binary_kernel.traverse, stack=128)),
+    "cuda_bvh8": ("bvh8", bvh8_kernel.traverse),
+    "plain": ("bvh4", traverse_bvh4_plain),
+    "plain_binary": ("binary", functools.partial(traverse_binary_plain, stack_depth=64)),
+    "plain_binary_deep": ("binary_deep",
+                          functools.partial(traverse_binary_plain, stack_depth=128)),
+    "plain_bvh8": ("bvh8", traverse_bvh8_plain),
+}
+BACKENDS = tuple(_BACKENDS)
+CUDA_BACKENDS = tuple(b for b in BACKENDS if b.startswith("cuda_"))
+# BVH_BACKEND values (the JAX package's names) -> CUDA backend
+ENV_BACKENDS = {"bvh4": "cuda_bvh4", "binary": "cuda_binary",
+                "hbm": "cuda_binary_deep", "bvh8": "cuda_bvh8"}
 
 
 class Intersectors:
-    """Closest-hit and any-hit callables over one scene's device tables.
-    `n_calls` counts the traversal calls made through it."""
+    """Closest-hit and any-hit callables over one scene's device tables
+    (`tables`: node table, triangle table). `n_calls` counts the traversal
+    calls made through it."""
 
-    def __init__(self, backend: str, nodes: torch.Tensor, tris: torch.Tensor):
+    def __init__(self, backend: str, tables: tuple, device: torch.device,
+                 sort_bounds=None):
         self.backend = backend
-        self.nodes = nodes
-        self.tris = tris
+        self.tables = tables
+        self.device = device
+        self.sort_bounds = sort_bounds
         self.n_calls = 0
-        self._fn = (bvh4_kernel.traverse if backend == "cuda_bvh4"
-                    else traverse_bvh4_plain)
+        self.fn = _BACKENDS[backend][1]
+
+    def _call(self, o, d, t_max, any_hit):
+        self.n_calls += 1
+        if self.sort_bounds is None:
+            return self.fn(*self.tables, o, d, t_max, any_hit)
+        blo, bext = self.sort_bounds
+        order = torch.argsort(ray_sort_key(o, d, blo, bext, t_max), stable=True)
+        out = self.fn(*self.tables, o[order].contiguous(), d[order].contiguous(),
+                      t_max[order].contiguous(), any_hit)
+        unsort = lambda x: torch.empty_like(x).index_copy_(0, order, x)
+        return unsort(out) if any_hit else Hit(*map(unsort, out))
 
     def closest(self, o, d, t_max):
-        self.n_calls += 1
-        return self._fn(self.nodes, self.tris, o, d, t_max, False)
+        return self._call(o, d, t_max, False)
 
     def any_hit(self, o, d, t_max):
-        self.n_calls += 1
-        return self._fn(self.nodes, self.tris, o, d, t_max, True)
+        return self._call(o, d, t_max, True)
 
 
-def make_intersectors(scene, dbvh, device, backend: str | None = None) -> Intersectors:
-    device = torch.device(device)
-    if backend is None:
-        backend = "cuda_bvh4" if device.type == "cuda" else "plain"
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown traversal backend {backend!r}")
-    if backend == "cuda_bvh4" and device.type != "cuda":
-        raise ValueError("the cuda_bvh4 backend needs a CUDA device")
+def _node_table(layout: str, dbvh) -> np.ndarray:
     n = dbvh.n_nodes
-    wide = bvh4.collapse_bvh4(host(dbvh.node_lo)[:n], host(dbvh.node_hi)[:n],
-                              host(dbvh.node_meta)[:n])
+    lo, hi, meta = (host(x)[:n] for x in (dbvh.node_lo, dbvh.node_hi, dbvh.node_meta))
+    if layout == "bvh4":
+        return bvh4.pack_bvh4_cuda(*bvh4.collapse_bvh4(lo, hi, meta))
+    if layout == "bvh8":
+        return bvh8.pack_bvh8_cuda(*bvh8.collapse_bvh8(lo, hi, meta))
+    return binary.pack_binary_cuda(lo, hi, meta, 128 if layout == "binary_deep" else 64)
+
+
+def default_backend(device: torch.device) -> str:
+    """The backend of backend=None: "plain" on the CPU; on CUDA the kernel
+    that BVH_BACKEND names, cuda_bvh4 when it is unset or names no kernel
+    (as the JAX package falls back to bvh4 for any other value)."""
+    if device.type != "cuda":
+        return "plain"
+    return ENV_BACKENDS.get(os.environ.get("BVH_BACKEND", ""), "cuda_bvh4")
+
+
+def make_intersectors(scene, dbvh, device=None, backend: str | None = None,
+                      sort: bool = False) -> Intersectors:
+    """Pack and upload the tables of `backend` (default_backend when None)
+    on `device` (devices.resolve_device)."""
+    device = resolve_device(device, scene)
+    if backend is None:
+        backend = default_backend(device)
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown traversal backend {backend!r}")
+    if backend in CUDA_BACKENDS and device.type != "cuda":
+        raise ValueError(f"the {backend} backend needs a CUDA device")
+    nodes = _node_table(_BACKENDS[backend][0], dbvh)
     tris = np.ascontiguousarray(host(scene.tri_p), dtype=np.float32)
-    return Intersectors(backend, torch.as_tensor(bvh4.pack_bvh4_cuda(*wide), device=device),
-                        torch.as_tensor(tris, device=device))
+    sort_bounds = None
+    if sort:
+        b = np.asarray(host(scene.bounds), np.float32)
+        blo = torch.as_tensor(b[0], device=device)
+        sort_bounds = (blo, torch.clamp(torch.as_tensor(b[1], device=device) - blo, min=1e-9))
+    return Intersectors(backend, (torch.as_tensor(nodes, device=device),
+                                  torch.as_tensor(tris, device=device)),
+                        device, sort_bounds)
 
 
 def _expand_bits6(v: torch.Tensor) -> torch.Tensor:

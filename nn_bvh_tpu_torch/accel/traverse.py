@@ -1,20 +1,33 @@
-"""Hit records and the plain PyTorch BVH4 traversal.
+"""Hit records and the plain PyTorch traversals.
 
-`traverse_bvh4_plain` computes what `csrc/bvh4_traverse.cu` computes, with
-the same tables, constants and rounding (every operation is one float32
-rounding, like the kernel built with -fmad=false), vectorized over lanes:
-each ray keeps its own stack in an (R, 64) tensor and one loop iteration pops
-one entry for every live ray. It is the CPU path of the port and the
-reference the kernel is checked against on the card.
+Each plain traversal computes what its CUDA kernel computes, with the same
+tables, constants and rounding (every operation is one float32 rounding,
+like the kernels built with -fmad=false), vectorized over lanes: each ray
+keeps its own stack in an (R, depth) tensor and one loop iteration pops one
+entry for every live ray. They are the CPU path of the port and the
+references the kernels are checked against on the card.
 
-Semantics (those of nn_bvh_tpu/accel/pallas_bvh4.py::_traverse_bvh4):
+- `traverse_bvh4_plain`: csrc/bvh4_traverse.cu (pallas_bvh4._traverse_bvh4);
+- `traverse_binary_plain`: csrc/binary_traverse.cu, stack 64
+  (pallas_traverse._traverse_packed) or 128 (hbm_traverse._traverse_hbm);
+- `traverse_bvh8_plain`: csrc/bvh8_traverse.cu (pallas_bvh8._traverse_bvh8).
+
+Semantics (those of the TPU kernels):
 - closest-hit: a lane with t_max <= 0 visits nothing; misses return
   t = inf, prim = -1, b1 = b2 = 0;
 - any-hit: a lane with t_max < 0 reports occluded; a live lane stops at its
   first hit;
-- children are visited front to back by this ray's entry t (stable on ties:
-  the lower child index first), leaves test their triangles in order with
-  Moller-Trumbore (pallas_traverse._tri_isect_tile).
+- leaves test their triangles in order with Moller-Trumbore
+  (pallas_traverse._tri_isect_tile); the first smallest t wins;
+- child order, per ray: BVH4 pushes hit children far to near by entry t
+  (a stable descending sort, so on equal keys the higher slot is visited
+  first); BVH8 visits them near to far, stable (the lower slot first on
+  equal keys); the binary walk descends the near child by this ray's
+  direction sign on the split axis (the XLA anchor's dirIsNeg order).
+
+`counts`, a dict, receives per-ray int64 counts of box (slab) tests under
+"slab" and of triangle tests under "tri": the work the kernel does on these
+inputs, which chip_smoke.py turns into a bound.
 
 `intersect_brute` is a chunked O(R*N) oracle with the same triangle test.
 """
@@ -25,7 +38,7 @@ from typing import NamedTuple
 
 import torch
 
-from .bvh4 import STACK_DEPTH, MAX_LEAF, WIDTH
+from . import bvh4, bvh8
 
 TINY = 1e-20       # inverse-direction guard
 
@@ -77,28 +90,79 @@ def tri_isect(o, d, p, t_best):
     return hit, t, b1, b2
 
 
-def traverse_bvh4_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor,
-                        d: torch.Tensor, t_max: torch.Tensor, any_hit: bool):
-    """nodes (W,4,8) f32, tris (N,3,3) f32, o/d (R,3) f32, t_max (R,) f32.
-    Closest-hit -> Hit; any-hit -> (R,) bool occluded."""
+def _init_lanes(t_max: torch.Tensor, any_hit: bool, stack_depth: int):
+    """-> t_best, prim, b1, b2, stack, sp (-1 on dead lanes)."""
+    R = t_max.shape[0]
+    dev = t_max.device
+    prim = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    if any_hit:
+        prim = torch.where(t_max < 0.0, 0, prim).to(torch.int32)
+    live = t_max >= 0.0 if any_hit else t_max > 0.0
+    return (t_max.clone(), prim, torch.zeros(R, dtype=torch.float32, device=dev),
+            torch.zeros(R, dtype=torch.float32, device=dev),
+            torch.zeros((R, stack_depth), dtype=torch.int32, device=dev),
+            torch.where(live, 0, -1).to(torch.int64))
+
+
+def _slab(lo, hi, o, inv, t_best):
+    """Slab test of boxes lo/hi (..., 3) -> (hit, entry t)."""
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    tmin = torch.minimum(t0, t1)
+    tmax = torch.maximum(t0, t1)
+    tn = torch.maximum(torch.maximum(tmin[..., 0], tmin[..., 1]), tmin[..., 2])
+    tf = torch.minimum(torch.minimum(tmax[..., 0], tmax[..., 1]), tmax[..., 2]) * 1.0000004
+    return (tn <= tf) & (tf > 0.0) & (tn < t_best), tn
+
+
+def _leaf(li, off, cnt, tris, o, d, t_best, prim, b1, b2, any_hit):
+    """Test the leaves (off, cnt) of lanes li in place -> (found a hit,
+    triangles tested) per lane."""
+    jj = torch.arange(bvh4.MAX_LEAF, device=o.device)  # the packers check the leaf size
+    tj = off[:, None] + torch.minimum(jj[None, :], cnt[:, None] - 1)
+    tb = t_best[li]
+    h, t, bb1, bb2 = tri_isect(o[li][:, None, :], d[li][:, None, :], tris[tj], tb[:, None])
+    h = h & (jj[None, :] < cnt[:, None])
+    got = h.any(1)
+    if any_hit:
+        k = torch.argmax(h.to(torch.int32), dim=1)
+        tested = torch.where(got, k + 1, cnt)
+    else:
+        tm = torch.where(h, t, torch.inf)
+        k = torch.argmin(tm, dim=1)
+        t_best[li] = torch.where(got, tm.gather(1, k[:, None])[:, 0], tb)
+        tested = cnt
+    sel = lambda x: x.gather(1, k[:, None])[:, 0]
+    prim[li] = torch.where(got, sel(tj).to(torch.int32), prim[li])
+    b1[li] = torch.where(got, sel(bb1), b1[li])
+    b2[li] = torch.where(got, sel(bb2), b2[li])
+    return got, tested
+
+
+def _finish(t_best, prim, b1, b2, any_hit, counts, n_slab, n_tri):
+    if counts is not None:
+        counts["slab"], counts["tri"] = n_slab, n_tri
+    if any_hit:
+        return prim >= 0
+    return Hit(t=torch.where(prim < 0, torch.inf, t_best), prim=prim, b1=b1, b2=b2)
+
+
+def _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, leaf_bits, stack_depth,
+                         near_first, counts):
+    """Wide-BVH walk over (W, width, 8) records [lo.xyz, hi.xyz, meta, pad];
+    leaf meta -(1 + offset << leaf_bits + count-1). near_first: push the hit
+    children so that the nearest is popped next, stable (lower slot first);
+    else push them in a stable descending sort of entry t (BVH4's rule)."""
     R = o.shape[0]
-    dev = o.device
+    width = nodes.shape[1]
     lo_all = nodes[..., 0:3]
     hi_all = nodes[..., 3:6]
     meta_all = nodes[..., 6].contiguous().view(torch.int32)
     inv = safe_inv(d)
-
-    t_best = t_max.clone()
-    prim = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    if any_hit:
-        prim = torch.where(t_max < 0.0, 0, prim).to(torch.int32)
-    b1 = torch.zeros(R, dtype=torch.float32, device=dev)
-    b2 = torch.zeros(R, dtype=torch.float32, device=dev)
-    live = t_max >= 0.0 if any_hit else t_max > 0.0
-    stack = torch.zeros((R, STACK_DEPTH), dtype=torch.int32, device=dev)
-    sp = torch.where(live, 0, -1).to(torch.int64)
-    slot = torch.arange(WIDTH, device=dev)
-    jj = torch.arange(MAX_LEAF, device=dev)
+    t_best, prim, b1, b2, stack, sp = _init_lanes(t_max, any_hit, stack_depth)
+    n_slab = torch.zeros(R, dtype=torch.int64, device=o.device)
+    n_tri = torch.zeros(R, dtype=torch.int64, device=o.device)
+    slot = torch.arange(width, device=o.device)
 
     while True:
         idx = torch.nonzero(sp >= 0).squeeze(1)
@@ -108,63 +172,114 @@ def traverse_bvh4_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor
         entry = stack[idx, spi]
         spi = spi - 1
 
-        # interior: slab-test the 4 children, push hits far to near
+        # interior: slab-test the children, push the hit ones
         inner = entry >= 0
         ii = idx[inner]
         if ii.numel():
             e = entry[inner].long()
-            oi, invi = o[ii][:, None, :], inv[ii][:, None, :]
-            t0 = (lo_all[e] - oi) * invi
-            t1 = (hi_all[e] - oi) * invi
-            tmin = torch.minimum(t0, t1)
-            tmax = torch.maximum(t0, t1)
-            tn = torch.maximum(torch.maximum(tmin[..., 0], tmin[..., 1]), tmin[..., 2])
-            tf = torch.minimum(torch.minimum(tmax[..., 0], tmax[..., 1]),
-                               tmax[..., 2]) * 1.0000004
-            ok = (tn <= tf) & (tf > 0.0) & (tn < t_best[ii][:, None])
-            key = torch.where(ok, torch.clamp(tn, min=0.0), -1.0)
-            _, order = torch.sort(key, dim=1, descending=True, stable=True)
-            smeta = meta_all[e].gather(1, order)
+            ok, tn = _slab(lo_all[e], hi_all[e], o[ii][:, None, :], inv[ii][:, None, :],
+                           t_best[ii][:, None])
             nhit = ok.sum(1)
+            if near_first:
+                key = torch.where(ok, torch.clamp(tn, min=0.0), torch.inf)
+                _, order = torch.sort(key, dim=1, stable=True)
+                # push slot j takes the (nhit-1-j)-th nearest: far to near
+                order = order.gather(1, torch.clamp(nhit[:, None] - 1 - slot[None, :], min=0))
+            else:
+                key = torch.where(ok, torch.clamp(tn, min=0.0), -1.0)
+                _, order = torch.sort(key, dim=1, descending=True, stable=True)
+            smeta = meta_all[e].gather(1, order)
             base = spi[inner]
             push = slot[None, :] < nhit[:, None]
-            rows = ii[:, None].expand(-1, WIDTH)[push]
+            rows = ii[:, None].expand(-1, width)[push]
             cols = (base[:, None] + 1 + slot[None, :])[push]
             stack[rows, cols] = smeta[push]
             spi[inner] = base + nhit
+            n_slab[ii] += width
 
-        # leaf: test up to 8 triangles; keep the first smallest t
+        # leaf: test up to 8 triangles
         leaf = ~inner
         li = idx[leaf]
         if li.numel():
             u = -entry[leaf].long() - 1
-            off = u >> 4
-            cnt = (u & 15) + 1
-            tj = off[:, None] + torch.minimum(jj[None, :], cnt[:, None] - 1)
-            tb = t_best[li]
-            h, t, bb1, bb2 = tri_isect(o[li][:, None, :], d[li][:, None, :],
-                                       tris[tj], tb[:, None])
-            h = h & (jj[None, :] < cnt[:, None])
-            if any_hit:
-                k = torch.argmax(h.to(torch.int32), dim=1)
-                got = h.any(1)
-            else:
-                tm = torch.where(h, t, torch.inf)
-                k = torch.argmin(tm, dim=1)
-                got = h.any(1)
-                t_best[li] = torch.where(got, tm.gather(1, k[:, None])[:, 0], tb)
-            sel = lambda x: x.gather(1, k[:, None])[:, 0]
-            prim[li] = torch.where(got, sel(tj).to(torch.int32), prim[li])
-            b1[li] = torch.where(got, sel(bb1), b1[li])
-            b2[li] = torch.where(got, sel(bb2), b2[li])
+            got, tested = _leaf(li, u >> leaf_bits, (u & ((1 << leaf_bits) - 1)) + 1,
+                                tris, o, d, t_best, prim, b1, b2, any_hit)
+            n_tri[li] += tested
             if any_hit:
                 spi[leaf] = torch.where(got, -1, spi[leaf])
         sp[idx] = spi
 
-    if any_hit:
-        return prim >= 0
-    miss = prim < 0
-    return Hit(t=torch.where(miss, torch.inf, t_best), prim=prim, b1=b1, b2=b2)
+    return _finish(t_best, prim, b1, b2, any_hit, counts, n_slab, n_tri)
+
+
+def traverse_bvh4_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor,
+                        d: torch.Tensor, t_max: torch.Tensor, any_hit: bool,
+                        counts: dict | None = None):
+    """nodes (W,4,8) f32 (bvh4.pack_bvh4_cuda), tris (N,3,3) f32, o/d (R,3)
+    f32, t_max (R,) f32. Closest-hit -> Hit; any-hit -> (R,) bool occluded."""
+    return _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, 4, bvh4.STACK_DEPTH,
+                                False, counts)
+
+
+def traverse_bvh8_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor,
+                        d: torch.Tensor, t_max: torch.Tensor, any_hit: bool,
+                        counts: dict | None = None):
+    """nodes (W,8,8) f32 (bvh8.pack_bvh8_cuda), tris (N,3,3) f32, o/d (R,3)
+    f32, t_max (R,) f32. Closest-hit -> Hit; any-hit -> (R,) bool occluded."""
+    return _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, 3, bvh8.STACK_DEPTH,
+                                True, counts)
+
+
+def traverse_binary_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor,
+                          d: torch.Tensor, t_max: torch.Tensor, any_hit: bool,
+                          stack_depth: int = 64, counts: dict | None = None):
+    """nodes (Nn,8) f32 (binary.pack_binary_cuda), tris (N,3,3) f32, o/d
+    (R,3) f32, t_max (R,) f32; a stack of `stack_depth` entries per ray.
+    Closest-hit -> Hit; any-hit -> (R,) bool occluded."""
+    R = o.shape[0]
+    lo_all = nodes[:, 0:3]
+    hi_all = nodes[:, 3:6]
+    meta_all = nodes[:, 6:8].contiguous().view(torch.int32)  # offset, count+32*axis
+    inv = safe_inv(d)
+    neg = inv < 0.0
+    t_best, prim, b1, b2, stack, sp = _init_lanes(t_max, any_hit, stack_depth)
+    n_slab = torch.zeros(R, dtype=torch.int64, device=o.device)
+    n_tri = torch.zeros(R, dtype=torch.int64, device=o.device)
+
+    while True:
+        idx = torch.nonzero(sp >= 0).squeeze(1)
+        if idx.numel() == 0:
+            break
+        spi = sp[idx]
+        node = stack[idx, spi].long()
+        spi = spi - 1
+        ok, _ = _slab(lo_all[node], hi_all[node], o[idx], inv[idx], t_best[idx])
+        n_slab[idx] += 1
+        meta = meta_all[node]
+        off, count, axis = meta[:, 0], meta[:, 1] & 31, meta[:, 1] >> 5
+
+        # interior hit: push the far child, then the near one (popped next)
+        inner = ok & (count == 0)
+        ii = idx[inner]
+        if ii.numel():
+            nd, of = node[inner].to(torch.int32), off[inner]
+            n = neg[ii].gather(1, axis[inner].long()[:, None])[:, 0]
+            base = spi[inner]
+            stack[ii, base + 1] = torch.where(n, nd + 1, of)
+            stack[ii, base + 2] = torch.where(n, of, nd + 1)
+            spi[inner] = base + 2
+
+        leaf = ok & (count > 0)
+        li = idx[leaf]
+        if li.numel():
+            got, tested = _leaf(li, off[leaf].long(), count[leaf].long(), tris, o, d,
+                                t_best, prim, b1, b2, any_hit)
+            n_tri[li] += tested
+            if any_hit:
+                spi[leaf] = torch.where(got, -1, spi[leaf])
+        sp[idx] = spi
+
+    return _finish(t_best, prim, b1, b2, any_hit, counts, n_slab, n_tri)
 
 
 def intersect_brute(tri_p: torch.Tensor, o, d, t_max, chunk: int = 4096) -> Hit:

@@ -1,0 +1,162 @@
+// Per-ray pieces shared by the traversal kernels of this directory
+// (bvh4_traverse.cu, binary_traverse.cu, bvh8_traverse.cu).
+//
+// Every operation rounds once (the kernels are built with -fmad=false), in
+// the order of the plain torch versions (accel/traverse.py), so kernel and
+// plain version return the same bits:
+// - inverse direction guards |d| < 1e-20 with +-1e-20;
+// - slab test: far t scaled by 1.0000004; a box is hit when
+//   tn <= tf && tf > 0 && tn < t_best;
+// - Moller-Trumbore: |det| > 1e-12, barycentric slack 1e-7, 0 < t < t_best;
+//   a leaf tests its triangles in order and the first smallest t wins;
+// - closest-hit: a lane with t_max <= 0 visits nothing; a miss is
+//   t = inf, prim = -1, b1 = b2 = 0;
+// - any-hit: a lane with t_max < 0 reports occluded (prim = 0), a live lane
+//   stops at its first hit; only prim is written.
+//
+// Triangles: (N, 3, 3) floats, [vertex][axis].
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace trav {
+
+constexpr float kTiny = 1e-20f;
+
+__device__ __forceinline__ float safe_inv(float c) {
+  float s = fabsf(c) < kTiny ? (c < 0.f ? -kTiny : kTiny) : c;
+  return 1.0f / s;
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
+                                        const float* __restrict__ d, int r) {
+  Ray ray;
+  ray.ox = o[3 * r]; ray.oy = o[3 * r + 1]; ray.oz = o[3 * r + 2];
+  ray.dx = d[3 * r]; ray.dy = d[3 * r + 1]; ray.dz = d[3 * r + 2];
+  ray.ix = safe_inv(ray.dx); ray.iy = safe_inv(ray.dy); ray.iz = safe_inv(ray.dz);
+  return ray;
+}
+
+// Slab test of the box [lo, hi]; *tn_out receives the entry t.
+__device__ __forceinline__ bool slab(const Ray& r, float lox, float loy,
+                                     float loz, float hix, float hiy,
+                                     float hiz, float t_best, float* tn_out) {
+  const float t0x = (lox - r.ox) * r.ix, t1x = (hix - r.ox) * r.ix;
+  const float t0y = (loy - r.oy) * r.iy, t1y = (hiy - r.oy) * r.iy;
+  const float t0z = (loz - r.oz) * r.iz, t1z = (hiz - r.oz) * r.iz;
+  const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                         fminf(t0z, t1z));
+  const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                         fmaxf(t0z, t1z)) * 1.0000004f;
+  *tn_out = tn;
+  return (tn <= tf) && (tf > 0.f) && (tn < t_best);
+}
+
+// Moller-Trumbore against the triangle at v[0..8].
+__device__ __forceinline__ bool tri_test(const Ray& r,
+                                         const float* __restrict__ v,
+                                         float t_best, float* t_out,
+                                         float* u1_out, float* u2_out) {
+  const float x0 = __ldg(v + 0), y0 = __ldg(v + 1), z0 = __ldg(v + 2);
+  const float e1x = __ldg(v + 3) - x0, e1y = __ldg(v + 4) - y0,
+              e1z = __ldg(v + 5) - z0;
+  const float e2x = __ldg(v + 6) - x0, e2y = __ldg(v + 7) - y0,
+              e2z = __ldg(v + 8) - z0;
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool ok_det = fabsf(det) > 1e-12f;
+  const float inv_det = ok_det ? 1.0f / det : 0.f;
+  const float sx = r.ox - x0, sy = r.oy - y0, sz = r.oz - z0;
+  const float u1 = (sx * px + sy * py + sz * pz) * inv_det;
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float u2 = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  *t_out = t;
+  *u1_out = u1;
+  *u2_out = u2;
+  return ok_det && (u1 >= -1e-7f) && (u2 >= -1e-7f) &&
+         (u1 + u2 <= 1.0000001f) && (t > 0.f) && (t < t_best);
+}
+
+// Tests triangles off .. off+cnt-1 in order. Closest-hit keeps the first
+// smallest t; any-hit returns true at its first hit.
+template <bool kAnyHit>
+__device__ __forceinline__ bool leaf_test(const Ray& r,
+                                          const float* __restrict__ tris,
+                                          int off, int cnt, float& t_best,
+                                          int& prim, float& b1, float& b2) {
+  for (int j = 0; j < cnt; ++j) {
+    float t, u1, u2;
+    if (tri_test(r, tris + (size_t)(off + j) * 9, t_best, &t, &u1, &u2)) {
+      prim = off + j;
+      b1 = u1;
+      b2 = u2;
+      if (kAnyHit) return true;
+      t_best = t;
+    }
+  }
+  return false;
+}
+
+// Writes one ray's result (see the header comment for misses and any-hit).
+template <bool kAnyHit>
+__device__ __forceinline__ void store_hit(int r, float t_best, int prim,
+                                          float b1, float b2, float* t_out,
+                                          int* prim_out, float* b1_out,
+                                          float* b2_out) {
+  prim_out[r] = prim;
+  if (!kAnyHit) {
+    t_out[r] = prim >= 0 ? t_best : INFINITY;
+    b1_out[r] = b1;
+    b2_out[r] = b2;
+  }
+}
+
+// The kernels' common signature: nodes, tris, o, d, t_max, n_rays, then
+// t_out, prim_out, b1_out, b2_out.
+template <typename Node>
+using Kernel = void (*)(const Node*, const float*, const float*, const float*,
+                        const float*, int, float*, int*, float*, float*);
+
+// The body of every traversal source's C entry: launches `closest` or `any`
+// on `stream` (a cudaStream_t), 128 rays per block, and returns
+// cudaGetLastError() of the launch. Any-hit writes only prim_out; t_out,
+// b1_out, b2_out may then be null.
+template <typename Node>
+inline int launch(Kernel<Node> closest, Kernel<Node> any, const void* nodes,
+                  const void* tris, const void* o, const void* d,
+                  const void* t_max, int n_rays, int any_hit, void* t_out,
+                  void* prim_out, void* b1_out, void* b2_out, void* stream) {
+  if (n_rays <= 0) return 0;
+  const dim3 block(128);
+  const dim3 grid((n_rays + 127) / 128);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* nd = static_cast<const Node*>(nodes);
+  auto* tr = static_cast<const float*>(tris);
+  auto* po = static_cast<const float*>(o);
+  auto* pd = static_cast<const float*>(d);
+  auto* pt = static_cast<const float*>(t_max);
+  if (any_hit) {
+    any<<<grid, block, 0, s>>>(nd, tr, po, pd, pt, n_rays, nullptr,
+                               static_cast<int*>(prim_out), nullptr, nullptr);
+  } else {
+    closest<<<grid, block, 0, s>>>(nd, tr, po, pd, pt, n_rays,
+                                   static_cast<float*>(t_out),
+                                   static_cast<int*>(prim_out),
+                                   static_cast<float*>(b1_out),
+                                   static_cast<float*>(b2_out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace trav

@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` exposes a plain `extern "C"` entry and is compiled by
 nvcc into a shared library at first use, then loaded with ctypes. The library
 lands in `build/kernels/` at the repository root, named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing here runs at import: the CPU-only test environment imports
-every module and has no nvcc.
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited source
+rebuilds and an unchanged one is reused. `build` compiles several sources at
+once, one nvcc process each. Nothing here runs at import: the CPU-only test
+environment imports every module and has no nvcc.
 
 A failed build raises; there is no fallback.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -42,21 +44,48 @@ def _nvcc() -> str:
     return path
 
 
+def _so_path(name: str) -> str:
+    h = hashlib.sha256()
+    for path in [os.path.join(CSRC, f"{name}.cu"),
+                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def build(*names: str) -> None:
+    """Compile every `csrc/<name>.cu` that has no library yet, all at once."""
+    todo = [n for n in names if not os.path.exists(_so_path(n))]
+    if not todo:
+        return
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        tmp = f"{_so_path(name)}.tmp{os.getpid()}"
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        try:
+            _, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+            err += "\nnvcc timed out after 600 s"
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for csrc/{name}.cu:\n{err}")
+            continue
+        build_logs[name] = err
+        os.replace(tmp, _so_path(name))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` if needed and return the loaded library."""
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        text = f.read()
-    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so_path = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
-    if not os.path.exists(so_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so_path}.tmp{os.getpid()}"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-        build_logs[name] = proc.stderr
-        os.replace(tmp, so_path)
-    return ctypes.CDLL(so_path)
+    build(name)
+    return ctypes.CDLL(_so_path(name))

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ..core import colorspace, spectrum
+from ..devices import resolve_device
 
 
 class Film(NamedTuple):
@@ -20,7 +21,9 @@ class Film(NamedTuple):
     width: int
 
 
-def make_film(height: int, width: int, device) -> Film:
+def make_film(height: int, width: int, device=None) -> Film:
+    """An empty film on `device` (the CUDA card when None)."""
+    device = resolve_device(device)
     n = height * width
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
     return Film(z(n, 3), z(n), z(n, 3), height, width)

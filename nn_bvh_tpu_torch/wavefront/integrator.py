@@ -15,10 +15,12 @@ Differences of form, not of result:
 - lanes that cannot receive escaped radiance (a scene with no infinite
   light) skip that block, and Russian roulette is skipped below `rr_depth`
   (where it keeps every lane and divides beta by 1);
-- on the CUDA backend the lane state is re-sorted once per bounce
-  (dead, octant, Morton) before the traversals; `perm` scatters the
+- on every CUDA traversal backend the lane state is re-sorted once per
+  bounce (dead, octant, Morton) before the traversals; `perm` scatters the
   radiance back to the caller's lane order, so no pixel value depends on it.
-Traversal runs under no_grad: gradients reach shading only.
+
+Entry points run on the CUDA card unless the caller asks for the CPU
+(`devices.resolve_device`). Traversal runs under no_grad: gradients reach shading only.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ..geometry import scene as scene_mod, texture
 from ..scatter import bxdf, lights, lightsamplers
 from ..accel import dispatch
 from ..accel.traverse import Hit
+from ..devices import resolve_device
 from . import camera as camera_mod, film as film_mod
 
 # sampler dimension layout per pixel sample (the JAX package's schedule)
@@ -104,7 +107,7 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
         ls_tables = lightsamplers.build(scene, cfg.light_sampler, device)
     if isect is None:
         isect = dispatch.make_intersectors(scene, dbvh, device)
-    do_resort = isect.backend == "cuda_bvh4"
+    do_resort = isect.backend in dispatch.CUDA_BACKENDS
     sort_blo = scene.bounds[0]
     sort_bext = torch.clamp(scene.bounds[1] - sort_blo, min=1e-9)
 
@@ -277,14 +280,6 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
     return L_out, lam, lam_pdf, film_w
 
 
-def _device(scene, device):
-    if device is not None:
-        return torch.device(device)
-    if isinstance(scene.tri_p, torch.Tensor):
-        return scene.tri_p.device
-    raise ValueError("a host scene needs an explicit device=")
-
-
 def make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig,
                  isect=None, device=None):
     """Build the 1-spp wave function film, sample_idx -> film. Host-side
@@ -292,8 +287,8 @@ def make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig,
     `isect` overrides the traversal backend (tests / comparisons)."""
     _check_cfg(cfg)
     if isect is not None and device is None:
-        device = isect.nodes.device
-    device = _device(scene, device)
+        device = isect.device
+    device = resolve_device(device, scene)
     ls_tables = lightsamplers.build(scene, cfg.light_sampler, device)
     if isect is None:
         isect = dispatch.make_intersectors(scene, dbvh, device)
@@ -313,7 +308,7 @@ def render(scene, dbvh, cam, spp: int = 16, sampler: str = "sobol", seed: int = 
            cfg: IntegratorConfig = IntegratorConfig(), wave_callback=None,
            sensor=None, device=None) -> torch.Tensor:
     """Progressive render, one 1-spp wave per sample -> (H,W,3) linear sRGB."""
-    device = _device(scene, device)
+    device = resolve_device(device, scene)
     sampler_cfg = samplers.make_sampler(sampler, seed=seed, spp=spp, width=cam.width)
     film = film_mod.make_film(cam.height, cam.width, device)
     wave = make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg, device=device)

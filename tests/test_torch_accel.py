@@ -21,7 +21,7 @@ from nn_bvh_tpu.accel import (traverse as j_traverse, pallas_bvh4 as j_pbvh4,
 from nn_bvh_tpu.geometry import scene as j_scene
 from nn_bvh_tpu_torch import accel
 from nn_bvh_tpu_torch.accel import (build, bvh4, bvh4_kernel, dispatch,
-                                    traverse)
+                                    kernel_launch, traverse)
 from nn_bvh_tpu_torch.geometry import scene
 
 torch.set_num_threads(1)
@@ -141,9 +141,9 @@ def test_brute_oracle_matches_plain(small_scene, ray_batch, port_hits):
 
 def test_wrapper_runs_plain_for_cpu_tensors(port_isect, ray_batch, port_hits):
     o, d, t_max = (torch.from_numpy(x) for x in ray_batch)
-    before = bvh4_kernel.n_launches
-    h = bvh4_kernel.traverse(port_isect.nodes, port_isect.tris, o, d, t_max, False)
-    assert bvh4_kernel.n_launches == before  # no kernel launch on the CPU
+    before = dict(kernel_launch.n_launches)
+    h = bvh4_kernel.traverse(*port_isect.tables, o, d, t_max, False)
+    assert dict(kernel_launch.n_launches) == before  # no kernel launch on the CPU
     assert torch.equal(h.prim, port_hits[0].prim) and torch.equal(h.t, port_hits[0].t)
 
 

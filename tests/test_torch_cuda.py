@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from nn_bvh_tpu_torch import accel
-from nn_bvh_tpu_torch.accel import bvh4_kernel, dispatch
+from nn_bvh_tpu_torch.accel import binary, binary_kernel, bvh4_kernel, dispatch, traverse
+from nn_bvh_tpu_torch.accel.kernel_launch import n_launches
 from nn_bvh_tpu_torch.core import samplers
 from nn_bvh_tpu_torch.geometry import scene, transform
+from nn_bvh_tpu_torch.tools import bench_scene
 from nn_bvh_tpu_torch.wavefront import camera, film, integrator
 
 torch.set_num_threads(1)
@@ -62,11 +64,11 @@ def test_kernel_matches_plain_on_cuda():
     p = dispatch.make_intersectors(sc, dbvh, "cuda", backend="plain")
     assert k.backend == "cuda_bvh4"
     o, d, t_max = _rays("cuda")
-    before = bvh4_kernel.n_launches
+    before = n_launches["bvh4_traverse"]
     hk, hp = k.closest(o, d, t_max), p.closest(o, d, t_max)
     ok, op = k.any_hit(o, d, t_max), p.any_hit(o, d, t_max)
     torch.cuda.synchronize()
-    assert bvh4_kernel.n_launches == before + 2
+    assert n_launches["bvh4_traverse"] == before + 2
     for a, b in zip(hk, hp):
         assert torch.equal(a, b)
     assert torch.equal(ok, op)
@@ -88,7 +90,7 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
            (o, d, t_max[:-1], ValueError)]
     for oo, dd, tt, err in bad:
         with pytest.raises(err):
-            bvh4_kernel.traverse(k.nodes, k.tris, oo, dd, tt)
+            bvh4_kernel.traverse(*k.tables, oo, dd, tt)
 
 
 @pytest.mark.cuda
@@ -110,3 +112,59 @@ def test_wave_kernel_matches_plain_on_cuda():
         films.append(f.xyz)
     assert torch.equal(films[0], films[1])
     assert float(films[0].mean()) > 0
+
+
+@pytest.fixture(scope="module")
+def bench():
+    """The bench scene (52,996 triangles) and 20,000 incoherent rays in its
+    box, 20% dead lanes."""
+    _need_card()
+    sc, dbvh, _ = bench_scene.build_bench_scene()
+    rs = np.random.RandomState(7)
+    R = 20000
+    lo, hi = np.asarray(sc.bounds)
+    o = (lo + rs.rand(R, 3) * (hi - lo)).astype(np.float32)
+    d = rs.randn(R, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.where(rs.rand(R) < 0.2, -1.0, 1e30).astype(np.float32)
+    return sc, dbvh, (o, d, t_max)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda_binary", "cuda_binary_deep", "cuda_bvh8"])
+def test_new_kernels_match_plain_on_bench_scene(bench, backend):
+    _need_card()
+    sc, dbvh, rays = bench
+    k = dispatch.make_intersectors(sc, dbvh, "cuda", backend=backend)
+    p = dispatch.make_intersectors(sc, dbvh, "cuda", backend=backend.replace("cuda_", "plain_"))
+    o, d, t_max = (torch.as_tensor(x, device="cuda") for x in rays)
+    before = sum(n_launches.values())
+    hk, hp = k.closest(o, d, t_max), p.closest(o, d, t_max)
+    ok, op = k.any_hit(o, d, t_max), p.any_hit(o, d, t_max)
+    torch.cuda.synchronize()
+    assert sum(n_launches.values()) == before + 2
+    for a, b in zip(hk, hp):
+        assert torch.equal(a, b)
+    assert torch.equal(ok, op)
+    live = t_max > 0
+    assert bool((hk.prim[~live] == -1).all()) and bool(ok[~live].all())
+    assert 0.1 < float((hk.prim[live] >= 0).float().mean()) < 1.0
+
+
+@pytest.mark.cuda
+def test_deep_kernel_on_deep_tree():
+    _need_card()
+    tri, db = bench_scene.build_deep_tree(100)
+    nodes = torch.as_tensor(binary.pack_binary_cuda(db.node_lo, db.node_hi, db.node_meta, 128),
+                            device="cuda")
+    tris = torch.as_tensor(tri, device="cuda")
+    rays = bench_scene.deep_tree_rays(100, 20000)
+    o, d, t_max = (torch.as_tensor(x, device="cuda") for x in rays)
+    hk = binary_kernel.traverse(nodes, tris, o, d, t_max, False, stack=128)
+    hp = traverse.traverse_binary_plain(nodes, tris, o, d, t_max, False, 128)
+    hb = traverse.intersect_brute(tris, o, d, t_max)
+    for a, b in zip(hk, hp):
+        assert torch.equal(a, b)
+    assert torch.equal(hk.prim, hb.prim)
+    assert torch.equal(binary_kernel.traverse(nodes, tris, o, d, t_max, True, stack=128),
+                       traverse.traverse_binary_plain(nodes, tris, o, d, t_max, True, 128))

@@ -14,6 +14,7 @@ a ray that flips at an edge makes its whole path diverge.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -124,6 +125,27 @@ def test_image_matches_jax(images):
     assert px_ok.mean() >= 0.99, px_ok.mean()
 
 
+@pytest.mark.parametrize("backend", ["plain_binary", "plain_binary_deep", "plain_bvh8"])
+def test_backend_image_matches_jax(setup, images, backend, request):
+    """Each new traversal backend's plain version through the whole wave,
+    against the same JAX image as test_image_matches_jax, same thresholds."""
+    _, _, _, tsc, tbvh, tcam = setup
+    mis = request.node.callspec.params["images"]
+    cfg = integrator.IntegratorConfig(max_depth=4, mis=mis, rr_depth=2)
+    scfg = samplers.make_sampler("sobol", seed=0, spp=SPP, width=W)
+    isect = dispatch.make_intersectors(tsc, tbvh, "cpu", backend=backend)
+    wave = integrator.make_wave_fn(tsc, tbvh, tcam, scfg, cfg, isect=isect)
+    f = film.make_film(H, W, "cpu")
+    for s in range(SPP):
+        f = wave(f, s)
+    assert isect.n_calls > 0
+    img_j, img_t = images[0], film.develop(f).numpy()
+    assert np.isfinite(img_t).all() and img_t.mean() > 0
+    assert abs(img_t.mean() - img_j.mean()) <= 0.005 * abs(img_j.mean())
+    px_ok = np.isclose(img_t, img_j, atol=1e-3, rtol=1e-2).all(-1)
+    assert px_ok.mean() >= 0.99, px_ok.mean()
+
+
 def test_outputs_are_float32(setup, images):
     _, _, _, tsc, tbvh, tcam = setup
     assert images[1].dtype == torch.float32
@@ -142,12 +164,30 @@ def test_port_built_scene_renders():
     sc, dbvh, _ = accel.build_scene_bvh(reduced_bench_scene(scene))
     cam = camera.make_perspective(j_xf.look_at(EYE, TARGET, UP), fov=50.0,
                                   width=16, height=16)
-    with pytest.raises(ValueError, match="device"):
-        integrator.render(sc, dbvh, cam, spp=1)
     img = integrator.render(sc, dbvh, cam, spp=1, device="cpu",
                             cfg=integrator.IntegratorConfig(max_depth=3, rr_depth=1))
     assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
     assert float(img.mean()) > 0
+
+
+def test_host_scene_defaults_to_cuda(monkeypatch):
+    """A host (numpy) scene with no device= asks for the card; without one
+    every entry point raises instead of rendering on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sc, dbvh, _ = accel.build_scene_bvh(reduced_bench_scene(scene))
+    cam = camera.make_perspective(j_xf.look_at(EYE, TARGET, UP), fov=50.0,
+                                  width=8, height=8)
+    scfg = samplers.make_sampler("sobol", seed=0, spp=1)
+    calls = [lambda: integrator.render(sc, dbvh, cam, spp=1),
+             lambda: integrator.make_wave_fn(sc, dbvh, cam, scfg, integrator.IntegratorConfig()),
+             lambda: dispatch.make_intersectors(sc, dbvh),
+             lambda: film.make_film(8, 8)]
+    for call in calls:
+        with pytest.raises(ValueError, match="no CUDA device"):
+            call()
+    # a scene of CPU tensors keeps its device
+    tsc = scene.to_device(sc, "cpu")
+    assert dispatch.make_intersectors(tsc, dbvh).device == torch.device("cpu")
 
 
 def test_unported_integrators_raise(setup):
@@ -160,9 +200,12 @@ def test_unported_integrators_raise(setup):
 
 def test_port_imports_no_jax():
     code = ("import sys\n"
+            "import importlib, pkgutil\n"
             "import nn_bvh_tpu_torch\n"
-            "import nn_bvh_tpu_torch.wavefront.integrator\n"
-            "import nn_bvh_tpu_torch.accel.bvh4_kernel\n"
+            "for m in pkgutil.walk_packages(nn_bvh_tpu_torch.__path__, 'nn_bvh_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "assert 'nn_bvh_tpu_torch.tools.trav_prof' in sys.modules\n"
+            "import chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'nn_bvh_tpu' or m.startswith('nn_bvh_tpu.')]\n"
             "assert not bad, bad\n"
@@ -171,3 +214,5 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=repo)
     assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+    with open(os.path.join(repo, "chip_smoke.py")) as f:  # its imports inside functions too
+        assert not re.search(r"^\s*(from|import)\s+(jax|nn_bvh_tpu)(\.|\s|$)", f.read(), re.M)
