@@ -33,7 +33,24 @@ points, once per traversal backend, and checks it:
 9. a bound per kernel on the incoherent closest batch: the larger of
    FLOPs / 67 TFLOP/s (float32 outside the tensor cores) and bytes /
    3.35 TB/s, with the box and triangle tests counted by the plain version
-   on the same batch.
+   on the same batch;
+10. the kernel lab's main path (`python -m nn_bvh_tpu_torch.tools.kernel_lab`,
+   the bench scene's camera, bounce and shadow classes at R = 65,536):
+   launches of lab_traverse, floor_bench and brless_traverse > 0, and one
+   of binary_traverse (the camera hits of the ray classes), nothing else;
+11. each lab variant (lab_traverse rows 8, 16, 32, k_pop 2 and 4, no leaf
+   tests, vec; brless_traverse both modes) on each class: its time (CUDA
+   events, median of 5) beside cuda_binary's; its prims against
+   cuda_binary's on live lanes (a lane that differs must be a tie, both
+   hits, |dt| <= 1e-4); bit for bit against its plain version (t, prim,
+   cnt, cnt2) on the camera and shadow classes, and on the bounce class
+   for the first variant of each kernel (the plain walk takes seconds
+   there), whose plain call is timed, with a bound by phase 9's rule: its
+   box and triangle tests counted by the plain version on that batch (every
+   lane's box test per packet visit, the triangle tests masked in), o and d
+   for every lane (dead lanes vote in a packet);
+12. the three floor_bench variants at n_iter = 20,000 against their plain
+   versions, bit for bit, in ns per iteration, each with its bound.
 
 Any failure raises (exit code != 0). The last two lines of standard output
 are a JSON record of the kernels and {"ok": true, "device": {...}}.
@@ -69,6 +86,27 @@ KERNELS = [
     ("bvh8_traverse", "cuda_bvh8", "plain_bvh8", "nn_bvh_tpu_torch/csrc/bvh8_traverse.cu",
      "nn_bvh_tpu/accel/pallas_bvh8.py:223"),
 ]
+LAB_SOURCE = "nn_bvh_tpu_torch/csrc/kernel_lab.cu"
+LAB_REPLACES = {"lab_traverse": "tools/perf/kernel_lab.py:202",
+                "brless_traverse": "tools/perf/kernel_lab.py:360",
+                "floor_bench": "tools/perf/kernel_lab.py:434"}
+LAB_R = 65536
+# name -> (kernel, keyword arguments); the first of each kernel is timed
+LAB_VARIANTS = {
+    "lab rows=32 k=1": ("lab_traverse", dict(rows=32, count=True)),
+    "lab rows=16 k=1": ("lab_traverse", dict(rows=16, count=True)),
+    "lab rows=8 k=1": ("lab_traverse", dict(rows=8, count=True)),
+    "lab rows=32 k=2": ("lab_traverse", dict(rows=32, k_pop=2, count=True)),
+    "lab rows=32 k=4": ("lab_traverse", dict(rows=32, k_pop=4, count=True)),
+    "lab rows=32 no leaf": ("lab_traverse", dict(rows=32, leaf_mode="none", count=True)),
+    "lab rows=32 vec": ("lab_traverse", dict(rows=32, vec=True, count=True)),
+    "brless leaf=always": ("brless_traverse", dict(rows=32, leaf_when=False)),
+    "brless leaf=select": ("brless_traverse", dict(rows=32, leaf_when=True)),
+}
+FLOOR_VARIANTS = {"floor: stack only": (False, False), "floor: +load+extract": (True, False),
+                  "floor: +slab+any": (True, True)}
+FLOOR_ITERS = 20000
+FLOPS_FLOOR_SLAB = 6  # per lane: 2 sub, min, max, mul, compare
 
 
 def check(cond, msg):
@@ -289,10 +327,146 @@ def bound_ms(torch, p_isect, o, d, t_max):
     # every lane reads t_max and writes t, prim, b1, b2; only a live lane
     # reads its o and d
     nbytes = live * (12 + 12) + R * 4 + R * 16 + table_bytes
+    return (*bound_of(flops, nbytes), dict(slab_tests=slab, tri_tests=tri, flops=flops,
+                                           bytes=nbytes))
+
+
+def bound_of(flops, nbytes):
+    """-> (max(FLOPs / peak, bytes / peak) in ms, which of the two sets it)."""
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    by = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_ops, t_bytes), by, dict(slab_tests=slab, tri_tests=tri, flops=flops,
-                                         bytes=nbytes)
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_lab_main_path(torch):
+    """Phase 10: the lab's entry point, counts reset just before and read
+    just after -> launches by kernel name."""
+    import contextlib
+    import io
+
+    from nn_bvh_tpu_torch.tools import kernel_lab
+
+    reset_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = kernel_lab.main([])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    lines = buf.getvalue().splitlines()
+    check(rc == 0 and lines and lines[-1].startswith('{"kernel_lab"'),
+          f"kernel_lab main returned {rc}")
+    for line in lines[:-1]:
+        print(f"phase 10: {line}")
+    check(all(counts.get(n, 0) > 0 for n in LAB_REPLACES), f"lab kernels not launched: {counts}")
+    # the camera hits that the bounce and shadow rays start from: one call
+    check(set(counts) - set(LAB_REPLACES) == {"binary_traverse"}
+          and counts["binary_traverse"] == 1, f"other kernels launched by the lab: {counts}")
+    print(f"phase 10: kernel_lab main in {time.perf_counter() - t0:.1f} s, launches {counts}")
+    return counts
+
+
+def event_ms(torch, fn):
+    """-> (ms of one call of fn by CUDA events, its result)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def lab_bound(lab_counts, R, Rp, table_bytes):
+    """Phase 9's rule for a lab traversal: FLOPs of the lane box tests and
+    the triangle tests masked in; bytes of o and d for every lane of the
+    batch (dead lanes vote in a packet), t_max, the four outputs of the
+    padded batch, the tables once."""
+    slab, tri = int(lab_counts["slab"].sum()), int(lab_counts["tri"].sum())
+    flops = slab * FLOPS_SLAB + tri * FLOPS_TRI
+    nbytes = R * (12 + 12 + 4) + Rp * 16 + table_bytes
+    return flops, nbytes, dict(lane_slab_tests=slab, lane_tri_tests=tri)
+
+
+def phase_lab_variants(torch, sc, dbvh, cam, dev):
+    """Phases 11 and 12 -> {kernel: row of the kernels line without launches}."""
+    from nn_bvh_tpu_torch.accel import dispatch
+    from nn_bvh_tpu_torch.tools import kernel_lab
+    from nn_bvh_tpu_torch.tools.bench_scene import median_ms
+
+    rays = kernel_lab.ray_classes(sc, dbvh, cam, LAB_R, dev)
+    isect = dispatch.make_intersectors(sc, dbvh, dev, backend="cuda_binary")
+    nodes, tris = isect.tables
+    table_bytes = sum(t.numel() * t.element_size() for t in isect.tables)
+    kern = {"lab_traverse": kernel_lab.lab_traverse, "brless_traverse": kernel_lab.brless_traverse}
+    plain = {"lab_traverse": kernel_lab.lab_traverse_plain,
+             "brless_traverse": kernel_lab.brless_traverse_plain}
+    rows = {}
+    ms_binary = {}
+    for cls, (o, d, t_max) in rays.items():
+        live = (t_max > 0).cpu()
+        ref = isect.closest(o, d, t_max)
+        ms_binary[cls] = median_ms(lambda: isect.closest(o, d, t_max))
+        print(f"phase 11: {cls}: {int(live.sum())} live lanes, cuda_binary {ms_binary[cls]:.4f} ms, "
+              f"hits {int((ref.prim >= 0).sum())}")
+        for tag, (name, kw) in LAB_VARIANTS.items():
+            timed = cls == "bounce" and name not in rows
+            out = kern[name](nodes, tris, o, d, t_max, **kw)
+            ms = median_ms(lambda: kern[name](nodes, tris, o, d, t_max, **kw))
+            line = f"phase 11: {tag:20s} {cls:7s} kernel {ms:9.4f} ms"
+            if kw.get("count"):
+                r = kw["rows"]
+                line += f", iters {int(out[2][::r, 0].sum())}, leafs {int(out[3][::r, 0].sum())}"
+            prim, t = out[1].reshape(-1)[:LAB_R].cpu(), out[0].reshape(-1)[:LAB_R].cpu()
+            if kw.get("leaf_mode") != "none":
+                bp, bt = ref.prim.cpu(), ref.t.cpu()
+                differ = live & (prim != bp)
+                ties = differ & (prim >= 0) & (bp >= 0) & ((t - bt).abs() <= 1e-4)
+                check(bool((differ == ties).all()),
+                      f"{tag} {cls}: {int((differ & ~ties).sum())} live prims differ from "
+                      "cuda_binary's and are no tie")
+                line += f", prims = cuda_binary's ({int(ties.sum())} ties)"
+            else:
+                check(bool((prim == -1).all()), f"{tag} {cls}: no leaf tests, yet a hit")
+            # the plain walk of the bounce class takes seconds a call on the card:
+            # there only the timed variant of each kernel
+            if cls != "bounce" or timed:
+                lab_counts = {}
+                plain_ms, want = event_ms(torch, lambda: plain[name](nodes, tris, o, d, t_max,
+                                                                     counts=lab_counts, **kw))
+                for a, b, what in zip(out, want, ("t", "prim", "cnt", "cnt2")):
+                    check(a.shape == b.shape and bool(torch.equal(a, b)),
+                          f"{tag} {cls}: {what} differs from the plain version")
+                line += f", bit-equal to plain ({plain_ms:.1f} ms, one call)"
+            if timed:
+                flops, nbytes, work = lab_bound(lab_counts, LAB_R, out[0].numel(), table_bytes)
+                bound, by = bound_of(flops, nbytes)
+                rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                              "max_abs_err": float((out[0] - want[0]).abs().max())}
+                line += (f"; cuda_binary {ms_binary[cls]:.4f} ms; bound {bound:.6f} ms ({by}; "
+                         f"{work}, {flops} FLOPs, {nbytes} bytes)")
+            print(line, flush=True)
+
+    ox = rays["bounce"][0][:, 0].repeat(2).contiguous()
+    for tag, (wl, ws) in FLOOR_VARIANTS.items():
+        kw = dict(n_iter=FLOOR_ITERS, with_load=wl, with_slab=ws)
+        out = kernel_lab.floor_bench(nodes, ox, **kw)
+        plain_ms, want = event_ms(torch, lambda: kernel_lab.floor_bench_plain(nodes, ox, **kw))
+        check(bool(torch.equal(out, want)), f"{tag}: differs from the plain version")
+        ms = median_ms(lambda: kernel_lab.floor_bench(nodes, ox, **kw))
+        lanes = out.numel()
+        addr = kernel_lab.floor_addr(kernel_lab.floor_nodes(FLOOR_ITERS))
+        rec_bytes = int(addr.unique().numel()) * 32 if wl else 0
+        flops = FLOOR_ITERS * lanes * FLOPS_FLOOR_SLAB if ws else (FLOOR_ITERS + lanes
+                                                                   if wl else 0)
+        nbytes = rec_bytes + lanes * 4 * (2 if ws else 1)
+        bound, by = bound_of(flops, nbytes)
+        print(f"phase 12: {tag:20s} {ms * 1e6 / FLOOR_ITERS:8.2f} ns/iter ({ms:.4f} ms, median "
+              f"of 5), plain {plain_ms:.1f} ms, bit-equal, out {float(out[0, 0])}; bound "
+              f"{bound:.3g} ms ({by}; {flops} FLOPs, {nbytes} bytes)", flush=True)
+        if wl and not ws:
+            rows["floor_bench"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                   "bound_by": by, "max_abs_err": 0.0}
+    return rows
 
 
 def main() -> int:
@@ -312,7 +486,7 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)")
     print(smi)
 
-    sources = ("bvh4_traverse", "binary_traverse", "bvh8_traverse")
+    sources = ("bvh4_traverse", "binary_traverse", "bvh8_traverse", "kernel_lab")
     t0 = time.perf_counter()
     kernels.build(*sources)
     for name in sources:
@@ -369,6 +543,11 @@ def main() -> int:
                     "launches": row["launches"], "max_abs_err": row["max_err"],
                     "ms": rep["kernel"], "plain_ms": rep["plain"], "bound_ms": bound,
                     "bound_by": by, "library_ms": None})
+    lab_launches = phase_lab_main_path(torch)
+    lab_rows = phase_lab_variants(torch, sc, dbvh, cam, dev)
+    for name, replaces in LAB_REPLACES.items():
+        out.append({"name": name, "route": "cuda", "source": LAB_SOURCE, "replaces": replaces,
+                    "launches": lab_launches[name], **lab_rows[name], "library_ms": None})
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""What chip_smoke.py and tools/trav_prof.py share: the bench scene, a
-synthetic deep tree for the deep-stack traversal, and CUDA-event timing."""
+"""What chip_smoke.py and the tools share: the bench scene, a synthetic
+deep tree for the deep-stack traversal, a synthetic widening tree for the
+lab's stack check, and CUDA-event timing."""
 
 from __future__ import annotations
 
@@ -88,6 +89,48 @@ def deep_tree_rays(levels: int, R: int, seed: int = 1):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     t_max = np.where(rs.rand(R) < 0.2, -1.0, 1e30).astype(np.float32)
     return o, d, t_max
+
+
+def build_widening_tree(levels: int = 20):
+    """A binary BVH (DFS layout, split axis x, every box [-1, 1]^3) on which
+    a packet heading +x visits every node and a walk popping 4 entries per
+    iteration keeps 4 more entries per level: the near child of each
+    P-node is a P-node, its far child a Q-node; a Q-node has two
+    leaf-parents, a leaf-parent two one-triangle leaves; below `levels` a
+    P-node is a leaf-parent. Depth levels + 2.
+    -> (tri_p (Nn, 3, 3) f32, triangle i in front of leaf i, DeviceBVH)."""
+    meta = []
+
+    def node(kind, depth):
+        i = len(meta)
+        meta.append([i, 1, 0])  # a leaf of triangle i until it gets children
+        if kind == "leaf":
+            return
+        if kind == "P" and depth >= levels:
+            kind = "LP"
+        near, far = {"P": ("P", "Q"), "Q": ("LP", "LP"), "LP": ("leaf", "leaf")}[kind]
+        node(near, depth + 1)  # child i + 1
+        meta[i] = [len(meta), 0, 0]
+        node(far, depth + 1)
+
+    node("P", 0)
+    n = len(meta)
+    tri = np.zeros((n, 3, 3), np.float32)
+    tri[:, :, 0] = 0.5 + 1e-3 * np.arange(n)[:, None]
+    tri[:, 0, 1:] = -0.5
+    tri[:, 1, 1] = tri[:, 2, 2] = 1.0
+    return tri, DeviceBVH(node_lo=np.full((n, 3), -1.0, np.float32),
+                          node_hi=np.full((n, 3), 1.0, np.float32),
+                          node_meta=np.array(meta, np.int32), n_nodes=n)
+
+
+def widening_tree_rays(R: int, seed: int = 0):
+    """Rays for build_widening_tree: from near (-0.5, -0.5, -0.5) heading
+    +x, all live. -> o, d, t_max (numpy f32)."""
+    rs = np.random.RandomState(seed)
+    o = (rs.rand(R, 3) * 0.1 - 0.5).astype(np.float32)
+    d = np.tile(np.float32([1.0, 0.05, 0.05]), (R, 1))
+    return o, d, np.full((R,), 1e30, np.float32)
 
 
 def median_ms(fn, n: int = 5) -> float:

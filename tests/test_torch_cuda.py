@@ -168,3 +168,101 @@ def test_deep_kernel_on_deep_tree():
     assert torch.equal(hk.prim, hb.prim)
     assert torch.equal(binary_kernel.traverse(nodes, tris, o, d, t_max, True, stack=128),
                        traverse.traverse_binary_plain(nodes, tris, o, d, t_max, True, 128))
+
+
+# ---------------------------------------------------------------------------
+# the traversal kernel lab (csrc/kernel_lab.cu): packet kernels vs their
+# plain versions, bit for bit, on the small scene
+# ---------------------------------------------------------------------------
+
+LAB_VARIANTS = {
+    "rows8": dict(rows=8, count=True),
+    "rows16": dict(rows=16, count=True),
+    "rows32": dict(rows=32, count=True),
+    "rows32-k2": dict(rows=32, k_pop=2, count=True),
+    "rows32-k4": dict(rows=32, k_pop=4, count=True),
+    "rows32-none": dict(rows=32, leaf_mode="none", count=True),
+    "rows32-vec": dict(rows=32, vec=True, count=True),
+    "rows4-nocount": dict(rows=4),
+}
+
+
+def _lab_inputs():
+    from nn_bvh_tpu_torch.tools import kernel_lab  # noqa: F401  (imports no JAX)
+
+    sc, dbvh = _scene()
+    tables = dispatch.make_intersectors(sc, dbvh, "cuda", backend="cuda_binary").tables
+    return tables, _rays("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(LAB_VARIANTS))
+def test_lab_kernel_matches_plain(variant):
+    _need_card()
+    from nn_bvh_tpu_torch.tools import kernel_lab
+
+    tables, rays = _lab_inputs()
+    kw = LAB_VARIANTS[variant]
+    before = n_launches["lab_traverse"]
+    out = kernel_lab.lab_traverse(*tables, *rays, **kw)
+    torch.cuda.synchronize()
+    assert n_launches["lab_traverse"] == before + 1
+    ref = kernel_lab.lab_traverse_plain(*tables, *rays, **kw)
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and torch.equal(a, b)
+    if kw.get("count"):
+        assert int(out[2].min()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_when", [False, True])
+def test_brless_kernel_matches_plain(leaf_when):
+    _need_card()
+    from nn_bvh_tpu_torch.tools import kernel_lab
+
+    tables, rays = _lab_inputs()
+    out = kernel_lab.brless_traverse(*tables, *rays, rows=16, leaf_when=leaf_when)
+    ref = kernel_lab.brless_traverse_plain(*tables, *rays, rows=16, leaf_when=leaf_when)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert not out[2].any() and not out[3].any()
+    lab = kernel_lab.lab_traverse(*tables, *rays, rows=16)
+    assert torch.equal(lab[1], out[1]) and torch.equal(lab[0], out[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_load,with_slab", [(False, False), (True, False), (True, True)])
+def test_floor_kernel_matches_plain(with_load, with_slab):
+    _need_card()
+    from nn_bvh_tpu_torch.tools import kernel_lab
+
+    rs = np.random.RandomState(2)
+    nodes = torch.as_tensor(rs.randn(17100, 8).astype(np.float32), device="cuda")
+    ox = torch.as_tensor(rs.randn(4096).astype(np.float32), device="cuda")
+    for rows, n_iter in ((8, 100), (32, 3000)):
+        out = kernel_lab.floor_bench(nodes, ox, n_iter=n_iter, with_load=with_load,
+                                     with_slab=with_slab, rows=rows)
+        ref = kernel_lab.floor_bench_plain(nodes, ox, n_iter=n_iter, with_load=with_load,
+                                           with_slab=with_slab, rows=rows)
+        assert out.shape == (rows, 128) and torch.equal(out, ref)
+    with pytest.raises(ValueError, match="17023"):
+        kernel_lab.floor_bench(nodes[:17000].contiguous(), ox, n_iter=10)
+
+
+@pytest.mark.cuda
+def test_lab_kernel_raises_on_stack_overflow():
+    _need_card()
+    from nn_bvh_tpu_torch.tools import kernel_lab
+
+    tri, db = bench_scene.build_widening_tree(20)
+    nodes = torch.as_tensor(binary.pack_binary_cuda(db.node_lo, db.node_hi, db.node_meta),
+                            device="cuda")
+    tris = torch.as_tensor(tri, device="cuda")
+    o, d, t_max = (torch.as_tensor(x, device="cuda") for x in bench_scene.widening_tree_rays(2048))
+    for k_pop in (1, 2):
+        out = kernel_lab.lab_traverse(nodes, tris, o, d, t_max, rows=8, k_pop=k_pop, count=True)
+        ref = kernel_lab.lab_traverse_plain(nodes, tris, o, d, t_max, rows=8, k_pop=k_pop,
+                                            count=True)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    with pytest.raises(kernel_lab.StackOverflow):
+        kernel_lab.lab_traverse(nodes, tris, o, d, t_max, rows=8, k_pop=4)
