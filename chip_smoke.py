@@ -14,33 +14,41 @@ points, once per traversal backend, and checks it:
    process each, all at once; prints their ptxas register / spill lines;
 3. BVH4 kernel vs plain: closest-hit and any-hit on 160,000 camera rays and
    160,000 incoherent rays (20% dead lanes), through the CUDA kernel and the
-   plain torch traversal; prim / occlusion must agree on >= 99.99% of live
-   lanes and every disagreeing lane must be a tie with |dt| <= 1e-4;
-   median times of 5 calls by CUDA events;
+   plain torch traversal, under the kernels' contract
+   (tools/bench_scene.check_hits): closest-hit t bit-equal on every lane,
+   prim, b1, b2 equal wherever prim is, a differing prim only on an exact t
+   tie of two hit triangles (tie lanes counted and printed), any-hit
+   occlusion equal on every lane, dead lanes miss (closest) or report
+   occluded (any-hit). Kernel times are device times (bench_scene.device_ms:
+   50 back-to-back calls between two CUDA events, the stream held busy while
+   the host enqueues them), with the host's time per call (host_us) and one
+   launch between two events (median of 5, host and device time together,
+   as earlier rounds timed it); the plain version's median of 5 calls;
 4. main path: make_wave_fn -> one warm-up wave + 4 timed waves; the image
    must be finite with mean > 0, and the kernel's launch count must equal
    the traversal calls the integrator made (0 < calls <= 9 per wave);
 5. the same seed through backend="plain" and the kernel: film XYZ within
    rtol 1e-3 + atol 1e-4 on >= 99.5% of pixels, mean within 0.1%;
 6. phase 3 for the binary (stack 64), deep binary (stack 128) and BVH8
-   kernels against their plain versions;
+   kernels against their plain versions, the same contract and times;
 7. a synthetic binary tree of depth 100 (too deep for the 64-entry stack,
    whose packer must refuse it) through the deep binary kernel and its plain
    version, with phase 3's checks;
 8. one bench wave per new backend through make_wave_fn: launches of its
    kernel = traversal calls, no other kernel launched, film within phase 5's
    tolerance of the cuda_bvh4 film of the same seed;
-9. a bound per kernel on the incoherent closest batch: the larger of
-   FLOPs / 67 TFLOP/s (float32 outside the tensor cores) and bytes /
-   3.35 TB/s, with the box and triangle tests counted by the plain version
-   on the same batch;
+9. a bound per kernel on the incoherent closest batch
+   (bench_scene.traversal_bound): the larger of FLOPs / 67 TFLOP/s (float32
+   outside the tensor cores) and bytes / 3.35 TB/s, with the box and
+   triangle tests counted by the plain version on the same batch, beside
+   the kernel's device time;
 10. the kernel lab's main path (`python -m nn_bvh_tpu_torch.tools.kernel_lab`,
    the bench scene's camera, bounce and shadow classes at R = 65,536):
    launches of lab_traverse, floor_bench and brless_traverse > 0, and one
    of binary_traverse (the camera hits of the ray classes), nothing else;
 11. each lab variant (lab_traverse rows 8, 16, 32, k_pop 2 and 4, no leaf
    tests, vec; brless_traverse both modes) on each class: its time (CUDA
-   events, median of 5) beside cuda_binary's; its prims against
+   events, median of 5) beside cuda_binary's (device_ms); its prims against
    cuda_binary's on live lanes (a lane that differs must be a tie, both
    hits, |dt| <= 1e-4); bit for bit against its plain version (t, prim,
    cnt, cnt2) on the camera and shadow classes, and on the bounce class
@@ -50,7 +58,17 @@ points, once per traversal backend, and checks it:
    lane's box test per packet visit, the triangle tests masked in), o and d
    for every lane (dead lanes vote in a packet);
 12. the three floor_bench variants at n_iter = 20,000 against their plain
-   versions, bit for bit, in ns per iteration, each with its bound.
+   versions, bit for bit, in ns per iteration, each with its bound;
+13. the nine traversal batches of one bench wave (bench_scene.wave_batches:
+   sample 0 through the default cuda_bvh4 intersectors, recorded as
+   trace_wave hands them over, in its lane order; launch counts reset
+   just before and read just after: 9 launches = 9 traversal calls): for
+   each, its live lanes, the plain walk's work per lane and per warp
+   (bench_scene.warp_work), the kernel's device time and host time, the
+   plain version's time, the bound by phase 9's rule, and phase 3's
+   contract with its tie count; then their sum, the "traversal device ms
+   per wave", and torch.profiler's device time of the kernel on two batches
+   beside device_ms.
 
 Any failure raises (exit code != 0). The last two lines of standard output
 are a JSON record of the kernels and {"ok": true, "device": {...}}.
@@ -61,19 +79,7 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-
-DEPTH = 4
-# Work per test, counted from csrc/traverse_common.cuh. A box (slab) test:
-# 6 sub + 6 mul, 5 min/max for tn, 5 for tf, 1 mul by 1.0000004, 3 compares
-# = 26. A Moller-Trumbore test: 6 sub for the edges, 9 for p, 5 for det,
-# 1 compare of |det|, 1 div, 3 sub for s, 6 for b1, 9 for q, 6 for b2, 6 for
-# t, 5 compares + 1 add for the hit = 58. The sort of a wide node's children
-# is not counted.
-FLOPS_SLAB = 26
-FLOPS_TRI = 58
-PEAK_FLOPS = 67e12   # H100 SXM float32 outside the tensor cores
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+DEPTH = 4  # bench_scene.BENCH_DEPTH
 
 # name, CUDA backend, plain twin, source, TPU kernel it replaces
 KERNELS = [
@@ -126,94 +132,64 @@ def reset_counts():
     kernel_launch.n_launches.clear()
 
 
-def bench_batches(torch, sc, cam, dev):
-    """Camera rays of sample 0 and incoherent rays (origins in the scene box,
-    uniform directions), one t_max with 20% dead lanes."""
-    from nn_bvh_tpu_torch.core import samplers
-    from nn_bvh_tpu_torch.wavefront import camera as camera_mod, integrator
-
-    R = cam.width * cam.height
-    pix = torch.arange(R, dtype=torch.int32, device=dev)
-    sid = torch.zeros(R, dtype=torch.int32, device=dev)
-    scfg = samplers.make_sampler("sobol", seed=0, spp=16)
-    u_pix = torch.stack(samplers.get_2d(scfg, pix, sid, integrator.DIM_PIXEL), -1)
-    u_lens = torch.stack(samplers.get_2d(scfg, pix, sid, integrator.DIM_LENS), -1)
-    o_cam, d_cam = camera_mod.generate_rays(cam, pix, u_pix, u_lens)
-    rs = np.random.RandomState(7)
-    lo, hi = np.asarray(sc.bounds)
-    o_inc = (lo + rs.rand(R, 3) * (hi - lo)).astype(np.float32)
-    d_inc = rs.randn(R, 3).astype(np.float32)
-    d_inc /= np.linalg.norm(d_inc, axis=1, keepdims=True)
-    dead = rs.rand(R) < 0.2
-    t_max = torch.as_tensor(np.where(dead, -1.0, 1e30).astype(np.float32), device=dev)
-    return {"camera": (o_cam.contiguous(), d_cam.contiguous(), t_max),
-            "incoherent": (torch.as_tensor(o_inc, device=dev),
-                           torch.as_tensor(d_inc, device=dev), t_max)}
-
-
 def compare(torch, label, kernel, plain, o, d, t_max):
-    """Kernel vs plain (callables (o, d, t_max, any_hit)) on one batch ->
-    (prim agreement, occlusion agreement, max |dt| on agreeing hits, hit rate)."""
+    """Kernel vs plain (callables (o, d, t_max, any_hit)) on one batch under
+    the kernels' contract (bench_scene.check_hits) -> (tie lanes, max |dt|
+    over lanes where both hit, hit rate of the live lanes)."""
+    from nn_bvh_tpu_torch.tools import bench_scene as bs
+
     live = t_max > 0
     hk = kernel(o, d, t_max, False)
     hp = plain(o, d, t_max, False)
     torch.cuda.synchronize()
-    same = (hk.prim == hp.prim) & live
-    agree = same.sum().item() / live.sum().item()
-    both = live & (hk.prim >= 0) & (hp.prim >= 0)
-    dt = (hk.t - hp.t).abs()
-    bad = live & ~same & ~(both & (dt <= 1e-4))
-    check(agree >= 0.9999, f"{label} closest: prim agrees on {agree:.6f} of live lanes")
-    check(int(bad.sum()) == 0, f"{label} closest: {int(bad.sum())} non-tie disagreements")
-    check(bool((hk.prim[~live] == -1).all() and torch.isinf(hk.t[~live]).all()),
-          f"{label} closest: dead lanes must miss")
-    agreeing = live & same & (hk.prim >= 0)
-    err = float(dt[agreeing].max()) if bool(agreeing.any()) else 0.0
-    ok_k = kernel(o, d, t_max, True)
-    ok_p = plain(o, d, t_max, True)
-    occ = ((ok_k == ok_p) & live).sum().item() / live.sum().item()
-    check(occ >= 0.9999, f"{label} any-hit: occlusion agrees on {occ:.6f}")
-    check(bool(ok_k[~live].all()), f"{label} any-hit: dead lanes must report occluded")
+    ties = bs.check_hits(hk, hp, t_max, False, f"{label} closest")
+    both = (hk.prim >= 0) & (hp.prim >= 0)
+    err = float((hk.t - hp.t)[both].abs().max()) if bool(both.any()) else 0.0
+    bs.check_hits(kernel(o, d, t_max, True), plain(o, d, t_max, True), t_max, True,
+                  f"{label} any-hit")
     rate = float(((hk.prim >= 0) & live).sum()) / float(live.sum())
-    return agree, occ, err, rate
+    return ties, err, rate
 
 
 def phase_kernel_vs_plain(torch, sc, dbvh, batches, dev, backend, plain, phase):
-    """Phases 3 and 6 for one kernel -> ({(batch, mode): {kernel, plain ms}},
-    max |dt|, the plain Intersectors)."""
+    """Phases 3 and 6 for one kernel -> ({(batch, mode): {device ms, host
+    us, single-launch ms, plain ms}}, max |dt|, the plain Intersectors)."""
     from nn_bvh_tpu_torch.accel import dispatch
-    from nn_bvh_tpu_torch.tools.bench_scene import median_ms
+    from nn_bvh_tpu_torch.tools.bench_scene import device_ms, host_us, median_ms
 
     k_isect = dispatch.make_intersectors(sc, dbvh, dev, backend=backend)
     p_isect = dispatch.make_intersectors(sc, dbvh, dev, backend=plain)
     nodes, tris = k_isect.tables
-    print(f"phase {phase}: {backend}: node table {tuple(nodes.shape)}, "
-          f"{tris.shape[0]} triangle slots")
+    print(f"phase {phase}: {backend}: node table {tuple(nodes.shape)}, triangle table "
+          f"{tuple(tris.shape)}")
     results = {}
     max_err = 0.0
     for name, (o, d, t_max) in batches.items():
         kern = lambda *a: k_isect.fn(*k_isect.tables, *a)
         pl = lambda *a: p_isect.fn(*p_isect.tables, *a)
-        agree, occ, err, rate = compare(torch, f"{backend} {name}", kern, pl, o, d, t_max)
+        ties, err, rate = compare(torch, f"{backend} {name}", kern, pl, o, d, t_max)
         max_err = max(max_err, err)
         for mode, any_hit in (("closest", False), ("any_hit", True)):
-            times = {"kernel": median_ms(lambda: kern(o, d, t_max, any_hit)),
+            call = lambda: kern(o, d, t_max, any_hit)
+            times = {"kernel": device_ms(call), "host_us": host_us(call),
+                     "single": median_ms(call),
                      "plain": median_ms(lambda: pl(o, d, t_max, any_hit))}
             results[(name, mode)] = times
-            print(f"phase {phase}: {backend} {name} {mode}: kernel {times['kernel']:.4f} ms, "
-                  f"plain {times['plain']:.2f} ms (median of 5)")
-        print(f"phase {phase}: {backend} {name}: prim agree {agree:.6f}, occlusion agree "
-              f"{occ:.6f}, hit rate {rate:.4f}, max |dt| on agreeing hits {err:.3g}")
+            print(f"phase {phase}: {backend} {name} {mode}: kernel {times['kernel']:.4f} ms "
+                  f"device (50 calls), host {times['host_us']:.1f} us/call, one launch "
+                  f"between events {times['single']:.4f} ms; plain {times['plain']:.2f} ms "
+                  f"(median of 5)")
+        print(f"phase {phase}: {backend} {name}: contract met (t bit-equal, prim/b1/b2 equal "
+              f"but {ties} tie lanes, occlusion equal), hit rate {rate:.4f}, max |dt| {err:.3g}")
     return results, max_err, p_isect
 
 
 def phase_main_path(torch, sc, dbvh, cam, dev):
     from nn_bvh_tpu_torch.accel import dispatch
-    from nn_bvh_tpu_torch.core import samplers
+    from nn_bvh_tpu_torch.tools.bench_scene import bench_config
     from nn_bvh_tpu_torch.wavefront import film as film_mod, integrator
 
-    cfg = integrator.IntegratorConfig(max_depth=DEPTH, mis=True, rr_depth=2)
-    sampler_cfg = samplers.make_sampler("sobol", seed=0, spp=16)
+    cfg, sampler_cfg = bench_config()
     isect = dispatch.make_intersectors(sc, dbvh, dev)
     check(isect.backend == "cuda_bvh4", f"CUDA picked {isect.backend}")
     wave = integrator.make_wave_fn(sc, dbvh, cam, sampler_cfg, cfg, isect=isect)
@@ -254,11 +230,10 @@ def one_wave(torch, sc, dbvh, cam, dev, backend):
     """One bench wave (sample 0) through `backend` -> (film XYZ, kernel
     launches by name, traversal calls, seconds)."""
     from nn_bvh_tpu_torch.accel import dispatch
-    from nn_bvh_tpu_torch.core import samplers
+    from nn_bvh_tpu_torch.tools.bench_scene import bench_config
     from nn_bvh_tpu_torch.wavefront import film as film_mod, integrator
 
-    cfg = integrator.IntegratorConfig(max_depth=DEPTH, mis=True, rr_depth=2)
-    sampler_cfg = samplers.make_sampler("sobol", seed=0, spp=16)
+    cfg, sampler_cfg = bench_config()
     isect = dispatch.make_intersectors(sc, dbvh, dev, backend=backend)
     wave = integrator.make_wave_fn(sc, dbvh, cam, sampler_cfg, cfg, isect=isect)
     film = film_mod.make_film(cam.height, cam.width, dev)
@@ -305,36 +280,75 @@ def phase_deep_tree(torch, dev, R):
                    for x in bench_scene.deep_tree_rays(levels, R))
     kern = lambda *a: binary_kernel.traverse(nodes, tris, *a, stack=128)
     pl = lambda *a: traverse.traverse_binary_plain(nodes, tris, *a, stack_depth=128)
-    agree, occ, err, rate = compare(torch, "deep tree", kern, pl, o, d, t_max)
+    ties, err, rate = compare(torch, "deep tree", kern, pl, o, d, t_max)
     brute = traverse.intersect_brute(tris, o, d, t_max)
     hk = kern(o, d, t_max, False)
     check(bool(torch.equal(hk.prim, brute.prim)), "deep tree: kernel differs from brute force")
-    print(f"phase 7: depth-{binary.tree_depth(db.node_meta)} tree, {R} rays: prim agree "
-          f"{agree:.6f}, occlusion agree {occ:.6f}, hit rate {rate:.4f}, max |dt| {err:.3g}, "
-          f"prims equal to brute force")
+    print(f"phase 7: depth-{binary.tree_depth(db.node_meta)} tree, {R} rays: contract met "
+          f"({ties} tie lanes), hit rate {rate:.4f}, max |dt| {err:.3g}, prims equal to brute "
+          f"force")
 
 
-def bound_ms(torch, p_isect, o, d, t_max):
-    """Least time for the closest-hit batch: max(FLOPs / peak, bytes / peak)
-    in ms, with the tests this batch needs counted by the plain version and
-    the rays' bytes counted for the lanes the kernel reads them for."""
+def bound_ms(torch, p_isect, o, d, t_max, any_hit=False):
+    """Phase 9's bound of one call (bench_scene.traversal_bound), the tests
+    counted by the plain version on this batch -> (ms, by, work)."""
+    from nn_bvh_tpu_torch.tools import bench_scene as bs
+
     counts = {}
-    p_isect.fn(*p_isect.tables, o, d, t_max, False, counts=counts)
-    slab, tri = int(counts["slab"].sum()), int(counts["tri"].sum())
-    flops = slab * FLOPS_SLAB + tri * FLOPS_TRI
-    R, live = o.shape[0], int((t_max > 0).sum())
+    p_isect.fn(*p_isect.tables, o, d, t_max, any_hit, counts=counts)
     table_bytes = sum(t.numel() * t.element_size() for t in p_isect.tables)
-    # every lane reads t_max and writes t, prim, b1, b2; only a live lane
-    # reads its o and d
-    nbytes = live * (12 + 12) + R * 4 + R * 16 + table_bytes
-    return (*bound_of(flops, nbytes), dict(slab_tests=slab, tri_tests=tri, flops=flops,
-                                           bytes=nbytes))
+    return bs.traversal_bound(counts, t_max, any_hit, table_bytes)
 
 
-def bound_of(flops, nbytes):
-    """-> (max(FLOPs / peak, bytes / peak) in ms, which of the two sets it)."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+def phase_wave_batches(torch, sc, dbvh, cam, dev):
+    """Phase 13: the nine traversal batches of one bench wave through
+    cuda_bvh4, each held against the plain version and timed on the card."""
+    from nn_bvh_tpu_torch.accel import dispatch
+    from nn_bvh_tpu_torch.tools import bench_scene as bs
+
+    reset_counts()
+    rec = bs.RecordingIntersectors(dispatch.make_intersectors(sc, dbvh, dev))
+    bs.bench_wave(sc, dbvh, cam, rec)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(rec.backend == "cuda_bvh4" and counts == {"bvh4_traverse": rec.n_calls}
+          and len(rec.batches) == rec.n_calls == 2 * DEPTH + 1,
+          f"wave batches: {len(rec.batches)} batches, launches {counts}")
+    p_isect = dispatch.make_intersectors(sc, dbvh, dev, backend="plain")
+    table_bytes = sum(t.numel() * t.element_size() for t in p_isect.tables)
+    kern = lambda *a: rec.fn(*rec.tables, *a)
+    total = {"device_ms": 0.0, "host_us": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "ties": 0}
+    for name, (o, d, t_max, any_hit) in zip(bs.wave_batch_names(rec.batches), rec.batches):
+        work = {}
+        plain_ms, ref = event_ms(torch, lambda: p_isect.fn(*p_isect.tables, o, d, t_max,
+                                                            any_hit, counts=work))
+        ties = bs.check_hits(kern(o, d, t_max, any_hit), ref, t_max, any_hit, f"wave {name}")
+        bound, by, _ = bs.traversal_bound(work, t_max, any_hit, table_bytes)
+        w = bs.warp_work(work)
+        ms = bs.device_ms(lambda: kern(o, d, t_max, any_hit))
+        us = bs.host_us(lambda: kern(o, d, t_max, any_hit))
+        for key, val in (("device_ms", ms), ("host_us", us), ("bound_ms", bound),
+                         ("plain_ms", plain_ms), ("ties", ties)):
+            total[key] += val
+        print(f"phase 13: {name:18s} live {w['live']:6d}; nodes/lane {w['nodes_mean']:.2f} "
+              f"p99 {w['nodes_p99']:.0f} max {w['nodes_max']}; tris/lane {w['tris_mean']:.2f} "
+              f"max {w['tris_max']}; warp max nodes {w['warp_nodes']:.1f} tris "
+              f"{w['warp_tris']:.1f}; kernel {ms:.4f} ms device, {us:.1f} us host; plain "
+              f"{plain_ms:.1f} ms; bound {bound:.6f} ms ({by}); contract met, {ties} ties",
+              flush=True)
+    print(f"phase 13: traversal device ms per wave {total['device_ms']:.4f} (host "
+          f"{total['host_us']:.1f} us, bound {total['bound_ms']:.6f} ms, plain "
+          f"{total['plain_ms']:.1f} ms), {total['ties']} tie lanes")
+    for i in (0, 2):
+        o, d, t_max, any_hit = rec.batches[i]
+        call = lambda: kern(o, d, t_max, any_hit)
+        prof = bs.profiler_kernel_us(call, "bvh4_traverse_kernel")
+        ms = bs.device_ms(call)
+        print(f"phase 13: profiler on {bs.wave_batch_names(rec.batches)[i]}: "
+              + ("no device time recorded" if prof is None else
+                 f"{prof[0]:.2f} us per kernel over {prof[1]} launches")
+              + f"; device_ms {ms * 1e3:.2f} us per call")
+    return total
 
 
 def phase_lab_main_path(torch):
@@ -381,8 +395,10 @@ def lab_bound(lab_counts, R, Rp, table_bytes):
     the triangle tests masked in; bytes of o and d for every lane of the
     batch (dead lanes vote in a packet), t_max, the four outputs of the
     padded batch, the tables once."""
+    from nn_bvh_tpu_torch.tools import bench_scene as bs
+
     slab, tri = int(lab_counts["slab"].sum()), int(lab_counts["tri"].sum())
-    flops = slab * FLOPS_SLAB + tri * FLOPS_TRI
+    flops = slab * bs.FLOPS_SLAB + tri * bs.FLOPS_TRI
     nbytes = R * (12 + 12 + 4) + Rp * 16 + table_bytes
     return flops, nbytes, dict(lane_slab_tests=slab, lane_tri_tests=tri)
 
@@ -391,7 +407,7 @@ def phase_lab_variants(torch, sc, dbvh, cam, dev):
     """Phases 11 and 12 -> {kernel: row of the kernels line without launches}."""
     from nn_bvh_tpu_torch.accel import dispatch
     from nn_bvh_tpu_torch.tools import kernel_lab
-    from nn_bvh_tpu_torch.tools.bench_scene import median_ms
+    from nn_bvh_tpu_torch.tools.bench_scene import bound_of, device_ms, median_ms
 
     rays = kernel_lab.ray_classes(sc, dbvh, cam, LAB_R, dev)
     isect = dispatch.make_intersectors(sc, dbvh, dev, backend="cuda_binary")
@@ -405,7 +421,7 @@ def phase_lab_variants(torch, sc, dbvh, cam, dev):
     for cls, (o, d, t_max) in rays.items():
         live = (t_max > 0).cpu()
         ref = isect.closest(o, d, t_max)
-        ms_binary[cls] = median_ms(lambda: isect.closest(o, d, t_max))
+        ms_binary[cls] = device_ms(lambda: isect.closest(o, d, t_max))
         print(f"phase 11: {cls}: {int(live.sum())} live lanes, cuda_binary {ms_binary[cls]:.4f} ms, "
               f"hits {int((ref.prim >= 0).sum())}")
         for tag, (name, kw) in LAB_VARIANTS.items():
@@ -476,7 +492,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from nn_bvh_tpu_torch import kernels
-    from nn_bvh_tpu_torch.tools.bench_scene import build_bench_scene
+    from nn_bvh_tpu_torch.tools import bench_scene
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -498,11 +514,11 @@ def main() -> int:
                 print(f"phase 2: {name}: {line.strip()}")
 
     t0 = time.perf_counter()
-    sc, dbvh, cam = build_bench_scene()
+    sc, dbvh, cam = bench_scene.build_bench_scene()
     print(f"phase 3: bench scene {sc.n_tris} triangles, {sc.n_lights} lights, "
           f"{dbvh.n_nodes} binary nodes, built in {time.perf_counter() - t0:.2f} s")
     check(sc.n_tris == 52996, f"bench scene has {sc.n_tris} triangles, expected 52996")
-    batches = bench_batches(torch, sc, cam, dev)
+    batches = bench_scene.probe_batches(sc, cam, dev)
     R = cam.width * cam.height
 
     rows = {}
@@ -537,8 +553,8 @@ def main() -> int:
         row = rows[name]
         bound, by, work = bound_ms(torch, row["p_isect"], o, d, t_max)
         rep = row["times"][("incoherent", "closest")]
-        print(f"phase 9: {name}: incoherent closest {rep['kernel']:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}; {work})")
+        print(f"phase 9: {name}: incoherent closest {rep['kernel']:.4f} ms device, "
+              f"bound {bound:.4f} ms ({by}; {work})")
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": row["launches"], "max_abs_err": row["max_err"],
                     "ms": rep["kernel"], "plain_ms": rep["plain"], "bound_ms": bound,
@@ -548,6 +564,7 @@ def main() -> int:
     for name, replaces in LAB_REPLACES.items():
         out.append({"name": name, "route": "cuda", "source": LAB_SOURCE, "replaces": replaces,
                     "launches": lab_launches[name], **lab_rows[name], "library_ms": None})
+    phase_wave_batches(torch, sc, dbvh, cam, dev)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

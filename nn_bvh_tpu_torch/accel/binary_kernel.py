@@ -46,5 +46,5 @@ def traverse(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor,
     if o.device.type == "cpu":
         return traverse_binary_plain(nodes, tris, o, d, t_max, any_hit, stack)
     name = ENTRIES[stack]
-    return kernel_launch.launch(_entry(name), name, nodes, (None, 8), tris, o, d,
-                                t_max, any_hit)
+    return kernel_launch.launch(_entry(name), name, nodes, (None, 8), tris, (None, 3, 3),
+                                o, d, t_max, any_hit)

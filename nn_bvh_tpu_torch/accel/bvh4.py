@@ -7,7 +7,8 @@ same wide nodes out for `csrc/bvh4_traverse.cu`: one 128-byte record per wide
 node, 4 children x [lo.xyz, hi.xyz, meta (i32 bits), pad] float32, (W, 4, 8).
 Its bounds are the TPU table's bf16 bounds (lo rounded down, hi rounded up)
 decoded to float32, so the kernel tests the same conservative boxes and
-returns the same hits.
+returns the same hits. `pack_tris_cuda` gives the kernel its 16-byte
+triangle records (vertex and two edges).
 
 Child meta: >= 0 -> wide-node index; < 0 -> leaf
 -(1 + tri_offset*16 + (count-1)). Empty children: lo = hi = 3e38, meta 0.
@@ -150,4 +151,17 @@ def pack_bvh4_cuda(wide_lo: np.ndarray, wide_hi: np.ndarray,
     out[..., 0:3] = _bf16_down(wide_lo.reshape(-1)).view(np.float32).reshape(W, WIDTH, 3)
     out[..., 3:6] = _bf16_up(wide_hi.reshape(-1)).view(np.float32).reshape(W, WIDTH, 3)
     out[..., 6] = meta.astype(np.int32).view(np.float32)
+    return out
+
+
+def pack_tris_cuda(tri_p: np.ndarray) -> np.ndarray:
+    """(N, 3, 3) vertices -> (N, 3, 4) f32 16-byte triangle records of
+    `csrc/bvh4_traverse.cu`: rows [v0, 0 | e1, 0 | e2, 0], e1 = v1 - v0 and
+    e2 = v2 - v0 subtracted in float32 (the one rounding the kernel's
+    subtraction made), so the kernel returns the same bits."""
+    p = np.asarray(tri_p, np.float32)
+    out = np.zeros((len(p), 3, 4), np.float32)
+    out[:, 0, :3] = p[:, 0]
+    out[:, 1, :3] = p[:, 1] - p[:, 0]
+    out[:, 2, :3] = p[:, 2] - p[:, 0]
     return out

@@ -36,5 +36,5 @@ def traverse(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor,
     f32, t_max (R,) f32. Closest-hit -> Hit; any-hit -> (R,) bool occluded."""
     if o.device.type == "cpu":
         return traverse_bvh8_plain(nodes, tris, o, d, t_max, any_hit)
-    return kernel_launch.launch(_entry(), NAME, nodes, (None, 8, 8), tris, o, d,
-                                t_max, any_hit)
+    return kernel_launch.launch(_entry(), NAME, nodes, (None, 8, 8), tris,
+                                (None, 3, 3), o, d, t_max, any_hit)

@@ -3,8 +3,10 @@ the ray re-sort key and sorted intersector
 (nn_bvh_tpu/accel/pallas_traverse.py:431-481).
 
 `make_intersectors` packs one backend's tables once on the host and uploads
-them to the device. Every traversal backend of the JAX package has a
-hand-written CUDA kernel here, and each kernel a plain torch version:
+them to the device: its node table, and the triangles as (N, 3, 3)
+vertices, or for `cuda_bvh4` as 16-byte records (`bvh4.pack_tris_cuda`).
+Every traversal backend of the JAX package has a hand-written CUDA kernel
+here, and each kernel a plain torch version:
 
 | backend (CUDA)     | plain twin          | JAX backend (TPU kernel)                   |
 | cuda_bvh4          | plain               | bvh4 (pallas_bvh4._traverse_bvh4)          |
@@ -95,6 +97,12 @@ class Intersectors:
         return self._call(o, d, t_max, True)
 
 
+def _tri_table(backend: str, scene) -> np.ndarray:
+    """cuda_bvh4 reads 16-byte records, every other backend (N, 3, 3)."""
+    tri_p = np.ascontiguousarray(host(scene.tri_p), dtype=np.float32)
+    return bvh4.pack_tris_cuda(tri_p) if backend == "cuda_bvh4" else tri_p
+
+
 def _node_table(layout: str, dbvh) -> np.ndarray:
     n = dbvh.n_nodes
     lo, hi, meta = (host(x)[:n] for x in (dbvh.node_lo, dbvh.node_hi, dbvh.node_meta))
@@ -126,7 +134,7 @@ def make_intersectors(scene, dbvh, device=None, backend: str | None = None,
     if backend in CUDA_BACKENDS and device.type != "cuda":
         raise ValueError(f"the {backend} backend needs a CUDA device")
     nodes = _node_table(_BACKENDS[backend][0], dbvh)
-    tris = np.ascontiguousarray(host(scene.tri_p), dtype=np.float32)
+    tris = _tri_table(backend, scene)
     sort_bounds = None
     if sort:
         b = np.asarray(host(scene.bounds), np.float32)

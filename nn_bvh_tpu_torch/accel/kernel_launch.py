@@ -38,17 +38,27 @@ def check(name, x, shape, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_aligned(name, x):
+    """The kernels read node and triangle records as float4."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def launch(entry, name: str, nodes: torch.Tensor, node_shape: tuple,
-           tris: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+           tris: torch.Tensor, tri_shape: tuple, o: torch.Tensor, d: torch.Tensor,
            t_max: torch.Tensor, any_hit: bool):
     """Check the inputs of CUDA tensors, run the C entry `entry` (ctypes) of
-    kernel `name` on them. Closest-hit -> Hit; any-hit -> (R,) bool occluded."""
+    kernel `name` on them. `tri_shape` is the triangle table the kernel
+    reads: (None, 3, 3) vertices or (None, 3, 4) records. Closest-hit -> Hit;
+    any-hit -> (R,) bool occluded."""
     if o.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {o.device}")
     dev = o.device
     R = o.shape[0]
     check("nodes", nodes, node_shape, dev)
-    check("tris", tris, (None, 3, 3), dev)
+    check("tris", tris, tri_shape, dev)
+    check_aligned("nodes", nodes)
+    check_aligned("tris", tris)
     check("o", o, (R, 3), dev)
     check("d", d, (R, 3), dev)
     check("t_max", t_max, (R,), dev)

@@ -65,13 +65,19 @@ def safe_inv(d: torch.Tensor) -> torch.Tensor:
 
 
 def tri_isect(o, d, p, t_best):
-    """Moller-Trumbore; o, d (..., 3), p (..., 3, 3) [vertex, axis],
+    """Moller-Trumbore; o, d (..., 3), p (..., 3, 3) [vertex, axis] or
+    (..., 3, 4) records [v0, 0 | e1, 0 | e2, 0] (bvh4.pack_tris_cuda: the
+    edges as given, the same single rounding as the subtraction here),
     t_best (...). -> (hit, t, b1, b2)."""
     ox, oy, oz = o.unbind(-1)
     dx, dy, dz = d.unbind(-1)
     x0, y0, z0 = p[..., 0, 0], p[..., 0, 1], p[..., 0, 2]
-    e1x, e1y, e1z = p[..., 1, 0] - x0, p[..., 1, 1] - y0, p[..., 1, 2] - z0
-    e2x, e2y, e2z = p[..., 2, 0] - x0, p[..., 2, 1] - y0, p[..., 2, 2] - z0
+    if p.shape[-1] == 4:
+        e1x, e1y, e1z = p[..., 1, 0], p[..., 1, 1], p[..., 1, 2]
+        e2x, e2y, e2z = p[..., 2, 0], p[..., 2, 1], p[..., 2, 2]
+    else:
+        e1x, e1y, e1z = p[..., 1, 0] - x0, p[..., 1, 1] - y0, p[..., 1, 2] - z0
+        e2x, e2y, e2z = p[..., 2, 0] - x0, p[..., 2, 1] - y0, p[..., 2, 2] - z0
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
@@ -215,7 +221,8 @@ def _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, leaf_bits, stack_dep
 def traverse_bvh4_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor,
                         d: torch.Tensor, t_max: torch.Tensor, any_hit: bool,
                         counts: dict | None = None):
-    """nodes (W,4,8) f32 (bvh4.pack_bvh4_cuda), tris (N,3,3) f32, o/d (R,3)
+    """nodes (W,4,8) f32 (bvh4.pack_bvh4_cuda), tris (N,3,3) f32 or the
+    kernel's (N,3,4) records (bvh4.pack_tris_cuda; same bits), o/d (R,3)
     f32, t_max (R,) f32. Closest-hit -> Hit; any-hit -> (R,) bool occluded."""
     return _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, 4, bvh4.STACK_DEPTH,
                                 False, counts)

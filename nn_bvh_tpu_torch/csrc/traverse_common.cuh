@@ -14,7 +14,8 @@
 // - any-hit: a lane with t_max < 0 reports occluded (prim = 0), a live lane
 //   stops at its first hit; only prim is written.
 //
-// Triangles: (N, 3, 3) floats, [vertex][axis].
+// Triangles: (N, 3, 3) floats, [vertex][axis] (tri_test, leaf_test), or the
+// 16-byte records of bvh4_traverse.cu (tri_test_rec, leaf_test_rec).
 
 #pragma once
 
@@ -104,6 +105,65 @@ __device__ __forceinline__ bool leaf_test(const Ray& r,
       if (kAnyHit) return true;
       t_best = t;
     }
+  }
+  return false;
+}
+
+// 16-byte triangle records (bvh4_traverse.cu; accel/bvh4.py::pack_tris_cuda):
+// (N, 3, 4) floats, rows [v0, 0 | e1, 0 | e2, 0] with e1 = v1 - v0 and
+// e2 = v2 - v0 rounded once on the host, the rounding tri_test does here.
+// Moller-Trumbore on one such record: tri_test's arithmetic after its edges.
+__device__ __forceinline__ bool tri_test_rec(const Ray& r, const float4 v,
+                                             const float4 e1, const float4 e2,
+                                             float t_best, float* t_out,
+                                             float* u1_out, float* u2_out) {
+  const float px = r.dy * e2.z - r.dz * e2.y;
+  const float py = r.dz * e2.x - r.dx * e2.z;
+  const float pz = r.dx * e2.y - r.dy * e2.x;
+  const float det = e1.x * px + e1.y * py + e1.z * pz;
+  const bool ok_det = fabsf(det) > 1e-12f;
+  const float inv_det = ok_det ? 1.0f / det : 0.f;
+  const float sx = r.ox - v.x, sy = r.oy - v.y, sz = r.oz - v.z;
+  const float u1 = (sx * px + sy * py + sz * pz) * inv_det;
+  const float qx = sy * e1.z - sz * e1.y;
+  const float qy = sz * e1.x - sx * e1.z;
+  const float qz = sx * e1.y - sy * e1.x;
+  const float u2 = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  const float t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
+  *t_out = t;
+  *u1_out = u1;
+  *u2_out = u2;
+  return ok_det && (u1 >= -1e-7f) && (u2 >= -1e-7f) &&
+         (u1 + u2 <= 1.0000001f) && (t > 0.f) && (t < t_best);
+}
+
+// leaf_test over 16-byte records: three float4 loads per triangle, the next
+// triangle's loads issued before the current one is tested.
+template <bool kAnyHit>
+__device__ __forceinline__ bool leaf_test_rec(const Ray& r,
+                                              const float4* __restrict__ tris,
+                                              int off, int cnt, float& t_best,
+                                              int& prim, float& b1, float& b2) {
+  const float4* p = tris + (size_t)off * 3;
+  float4 v = __ldg(p), e1 = __ldg(p + 1), e2 = __ldg(p + 2);
+  for (int j = 0; j < cnt; ++j) {
+    float4 nv = v, ne1 = e1, ne2 = e2;
+    if (j + 1 < cnt) {
+      nv = __ldg(p + 3 * j + 3);
+      ne1 = __ldg(p + 3 * j + 4);
+      ne2 = __ldg(p + 3 * j + 5);
+    }
+    float t, u1, u2;
+    if (tri_test_rec(r, v, e1, e2, t_best, &t, &u1, &u2)) {
+      prim = off + j;
+      b1 = u1;
+      b2 = u2;
+      if (kAnyHit) return true;
+      t_best = t;
+    }
+    v = nv;
+    e1 = ne1;
+    e2 = ne2;
   }
   return false;
 }

@@ -1,18 +1,44 @@
-"""What chip_smoke.py and the tools share: the bench scene, a synthetic
-deep tree for the deep-stack traversal, a synthetic widening tree for the
-lab's stack check, and CUDA-event timing."""
+"""What chip_smoke.py and the tools share: the bench scene and its wave's
+configuration, the ray batches that one bench wave hands the traversal
+(`wave_batches`) and chip_smoke's probe batches, the per-warp work of a
+batch (`warp_work`), a synthetic deep tree for the deep-stack traversal, a
+synthetic widening tree for the lab's stack check, and timing on the card:
+`device_ms` (device time per call, many calls between two CUDA events on a
+stream held busy while the host enqueues them), `host_us` (the host's time
+per call) and `median_ms` (single calls between events; host and device
+time together, kept for the packet kernels)."""
 
 from __future__ import annotations
+
+import functools
+import time
 
 import numpy as np
 import torch
 
 from .. import accel
+from ..accel import dispatch
 from ..accel.traverse import DeviceBVH
+from ..core import samplers
 from ..geometry import scene as scene_mod, transform as xf
-from ..wavefront import camera as camera_mod
+from ..wavefront import camera as camera_mod, film as film_mod, integrator
 
 BENCH_SIZE = 400  # bench.py renders 400x400
+BENCH_DEPTH = 4   # bench.py's max depth
+WARP = 32
+
+# The bound of a traversal call (chip_smoke phase 9's rule). Work per test,
+# counted from csrc/traverse_common.cuh. A box (slab) test: 6 sub + 6 mul,
+# 5 min/max for tn, 5 for tf, 1 mul by 1.0000004, 3 compares = 26. A
+# Moller-Trumbore test: 6 sub for the edges, 9 for p, 5 for det, 1 compare
+# of |det|, 1 div, 3 sub for s, 6 for b1, 9 for q, 6 for b2, 6 for t, 5
+# compares + 1 add for the hit = 58 (the edges are counted though the BVH4
+# kernel reads them precomputed: the yardstick is the function's). The sort
+# of a wide node's children is not counted.
+FLOPS_SLAB = 26
+FLOPS_TRI = 58
+PEAK_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
 def build_bench_scene():
@@ -147,3 +173,276 @@ def median_ms(fn, n: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bench_config():
+    """bench.py's wave: Path, MIS, Russian roulette from depth 2, depth 4,
+    Sobol 16 spp, seed 0 -> (IntegratorConfig, sampler config)."""
+    return (integrator.IntegratorConfig(max_depth=BENCH_DEPTH, mis=True, rr_depth=2),
+            samplers.make_sampler("sobol", seed=0, spp=16))
+
+
+def probe_batches(sc, cam, dev):
+    """chip_smoke phase 3's batches: camera rays of sample 0 and incoherent
+    rays (origins in the scene box, uniform directions), one t_max with 20%
+    dead lanes. -> {"camera" | "incoherent": (o, d, t_max)}."""
+    R = cam.width * cam.height
+    pix = torch.arange(R, dtype=torch.int32, device=dev)
+    sid = torch.zeros(R, dtype=torch.int32, device=dev)
+    scfg = bench_config()[1]
+    u_pix = torch.stack(samplers.get_2d(scfg, pix, sid, integrator.DIM_PIXEL), -1)
+    u_lens = torch.stack(samplers.get_2d(scfg, pix, sid, integrator.DIM_LENS), -1)
+    o_cam, d_cam = camera_mod.generate_rays(cam, pix, u_pix, u_lens)
+    rs = np.random.RandomState(7)
+    lo, hi = np.asarray(sc.bounds)
+    o_inc = (lo + rs.rand(R, 3) * (hi - lo)).astype(np.float32)
+    d_inc = rs.randn(R, 3).astype(np.float32)
+    d_inc /= np.linalg.norm(d_inc, axis=1, keepdims=True)
+    dead = rs.rand(R) < 0.2
+    t_max = torch.as_tensor(np.where(dead, -1.0, 1e30).astype(np.float32), device=dev)
+    return {"camera": (o_cam.contiguous(), d_cam.contiguous(), t_max),
+            "incoherent": (torch.as_tensor(o_inc, device=dev),
+                           torch.as_tensor(d_inc, device=dev), t_max)}
+
+
+class RecordingIntersectors(dispatch.Intersectors):
+    """The Intersectors of `isect`, keeping a copy of every batch they are
+    handed, as (o, d, t_max, any_hit), in `batches`."""
+
+    def __init__(self, isect: dispatch.Intersectors):
+        super().__init__(isect.backend, isect.tables, isect.device, isect.sort_bounds)
+        self.batches = []
+
+    def _call(self, o, d, t_max, any_hit):
+        self.batches.append((o.clone(), d.clone(), t_max.clone(), any_hit))
+        return super()._call(o, d, t_max, any_hit)
+
+
+def bench_wave(sc, dbvh, cam, isect, sample: int = 0) -> film_mod.Film:
+    """One bench wave (bench_config) of `sample` through `isect` on a new
+    film -> the film."""
+    cfg, scfg = bench_config()
+    wave = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=isect)
+    return wave(film_mod.make_film(cam.height, cam.width, isect.device), sample)
+
+
+def wave_batches(sc, dbvh, cam, device=None, backend=None) -> list:
+    """The traversal batches of one bench wave (sample 0, seed 0) through
+    the default intersectors of `device` (cuda_bvh4 on the card), or
+    `backend`: [(o, d, t_max, any_hit)], as trace_wave hands them over.
+    Depth 4 gives 9: camera closest, then shadow any-hit and bounce closest
+    for each depth. On a CUDA backend the lanes are in the integrator's
+    order: re-sorted at the start of each bounce (dead, octant, Morton), so
+    a bounce's closest-hit batch has its dead lanes last; its shadow batch
+    and the trailing closest-hit batch keep that order, with the lanes that
+    died since among the live ones."""
+    rec = RecordingIntersectors(dispatch.make_intersectors(sc, dbvh, device, backend=backend))
+    bench_wave(sc, dbvh, cam, rec)
+    return rec.batches
+
+
+def wave_batch_names(batches) -> list:
+    """"camera closest", "shadow d0 any", "bounce d1 closest", ... for the
+    batches of wave_batches."""
+    names, depth = [], 0
+    for i, b in enumerate(batches):
+        if b[3]:
+            names.append(f"shadow d{depth} any")
+            depth += 1
+        else:
+            names.append("camera closest" if i == 0 else f"bounce d{depth} closest")
+    return names
+
+
+def warp_work(counts: dict, width: int = 4) -> dict:
+    """A plain walk's per-lane `counts` (traverse.*_plain(counts=)) -> the
+    work of its live lanes (those that slab-tested at least one box): node
+    visits (box tests / `width`) and triangle tests per lane, mean, p99
+    and max, and the mean over live 32-lane groups (warps, in lane order) of
+    the group's most; a warp runs as long as its longest lane."""
+    nodes = (counts["slab"] // width).cpu().numpy()
+    tris = counts["tri"].cpu().numpy()
+    live = nodes > 0
+    out = {"lanes": int(nodes.size), "live": int(live.sum())}
+    pad = (-nodes.size) % WARP
+    for key, x in (("nodes", nodes), ("tris", tris)):
+        xl = x[live] if live.any() else np.zeros(1, x.dtype)
+        out[f"{key}_mean"] = float(xl.mean())
+        out[f"{key}_p99"] = float(np.percentile(xl, 99, method="higher"))
+        out[f"{key}_max"] = int(xl.max())
+        w = np.pad(x, (0, pad)).reshape(-1, WARP)
+        w_live = np.pad(live, (0, pad)).reshape(-1, WARP).any(1)
+        out[f"warp_{key}"] = float(w.max(1)[w_live].mean()) if w_live.any() else 0.0
+    return out
+
+
+def bound_of(flops, nbytes):
+    """-> (max(FLOPs / peak, bytes / peak) in ms, which of the two sets it)."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def traversal_bound(counts: dict, t_max: torch.Tensor, any_hit: bool, table_bytes: int):
+    """Least time of one traversal call: the box and triangle tests that the
+    plain walk counted on this batch (`counts`), and the bytes: o and d of
+    the live lanes (the only ones read), t_max, the outputs (t, prim, b1, b2;
+    any-hit writes prim only) and the tables once (`table_bytes`, those of
+    the plain backend: (N, 3, 3) triangles). -> (ms, "bytes" | "operations",
+    work dict)."""
+    slab, tri = int(counts["slab"].sum()), int(counts["tri"].sum())
+    flops = slab * FLOPS_SLAB + tri * FLOPS_TRI
+    R = t_max.numel()
+    live = int(((t_max >= 0) if any_hit else (t_max > 0)).sum())
+    nbytes = live * (12 + 12) + R * 4 + R * (4 if any_hit else 16) + table_bytes
+    return (*bound_of(flops, nbytes), dict(slab_tests=slab, tri_tests=tri, flops=flops,
+                                           bytes=nbytes))
+
+
+def check_hits(out, ref, t_max: torch.Tensor, any_hit: bool, label: str) -> int:
+    """A traversal kernel's result against its plain version's on one
+    batch, under the kernels' contract: closest-hit t bit-equal on every
+    lane; prim, b1 and b2 equal wherever prim is; a lane whose prim differs
+    is an exact t tie of two hit triangles; dead lanes miss (t = inf, prim
+    = -1, b1 = b2 = 0); any-hit occlusion equal on every lane, dead lanes
+    occluded. Raises AssertionError; -> the number of tie lanes."""
+    def need(cond, msg):
+        if not cond:
+            raise AssertionError(f"{label}: {msg}")
+
+    if any_hit:
+        need(torch.equal(out, ref), f"occlusion differs on {int((out != ref).sum())} lanes")
+        need(bool(out[t_max < 0].all()), "a dead lane is not occluded")
+        return 0
+    need(torch.equal(out.t, ref.t), f"t differs on {int((out.t != ref.t).sum())} lanes")
+    same = out.prim == ref.prim
+    need(torch.equal(out.b1[same], ref.b1[same]) and torch.equal(out.b2[same], ref.b2[same]),
+         "b1 / b2 differ on lanes of equal prim")
+    ties = ~same
+    need(bool(((out.prim[ties] >= 0) & (ref.prim[ties] >= 0)).all()),
+         "a lane's prim differs without a hit on both sides")
+    dead = t_max <= 0
+    need(bool((out.prim[dead] == -1).all() and torch.isinf(out.t[dead]).all()
+              and (out.b1[dead] == 0).all() and (out.b2[dead] == 0).all()),
+         "a dead lane does not miss")
+    return int(ties.sum())
+
+
+def _need_card(what: str):
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what} measures on a CUDA card; none is present")
+
+
+@functools.cache
+def _sleep_cycles_per_ms() -> float:
+    """Cycles of torch.cuda._sleep per millisecond on this card."""
+    cycles = 20_000_000
+    torch.cuda._sleep(1000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+class HostSync(RuntimeError):
+    """fn waits for the device, so device_ms cannot hold the stream."""
+
+
+def device_ms(fn, n: int = 50) -> float:
+    """Device time of one call of fn (ms) on the current stream: after a
+    warm-up call, the stream is held busy by torch.cuda._sleep while the
+    host enqueues a start event, n calls and an end event, so the events
+    enclose only the device's work (and the gaps between back-to-back
+    launches). If the start event has already passed when the host is done
+    enqueuing, the sleep was too short and the measurement is repeated with
+    a longer one; when that keeps happening, fn synchronises with the device
+    and HostSync is raised (`profiler_device_us` measures such a fn).
+    Raises without a card."""
+    _need_card("device_ms")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    hold_ms = 2e3 * n * host_s + 1.0
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_ms * _sleep_cycles_per_ms()))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / n
+        hold_ms *= 4
+    raise HostSync("device_ms: the start event passed before the host had enqueued the "
+                   "calls, however long the stream was held: the function waits for the device")
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Host time of one call of fn (microseconds): n calls on the host clock,
+    no synchronise between them (the enqueue a host-bound caller pays).
+    Raises without a card."""
+    _need_card("host_us")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def profiler_kernel_us(fn, match: str, n: int = 20):
+    """torch.profiler's device time of the kernels whose name contains
+    `match` over n calls of fn -> (microseconds per launch, launches), or
+    None when the profiler records no device time for them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _need_card("profiler_kernel_us")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if match in ev.key:
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0.0)
+            total += t
+            count += ev.count
+    if count == 0 or total <= 0:
+        return None
+    return total / count, count
+
+
+def profiler_device_us(fn, n: int = 20) -> float:
+    """torch.profiler's device time of every kernel and copy that n calls
+    of fn run, per call (microseconds): the device's busy time, measurable
+    also for a fn that synchronises (sorts, compactions)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _need_card("profiler_device_us")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        total += t
+    return total / n

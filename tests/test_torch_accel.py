@@ -147,6 +147,52 @@ def test_wrapper_runs_plain_for_cpu_tensors(port_isect, ray_batch, port_hits):
     assert torch.equal(h.prim, port_hits[0].prim) and torch.equal(h.t, port_hits[0].t)
 
 
+@pytest.fixture(scope="module")
+def record_tables(port_isect):
+    """The plain backend's tables with the triangles as the CUDA kernel's
+    16-byte records."""
+    nodes, tris = port_isect.tables
+    return nodes, torch.as_tensor(bvh4.pack_tris_cuda(tris.numpy()))
+
+
+def test_pack_tris_cuda_records(small_scene):
+    sc, _ = small_scene
+    tri_p = np.asarray(sc.tri_p)
+    rec = bvh4.pack_tris_cuda(tri_p)
+    assert rec.dtype == np.float32 and rec.shape == (len(tri_p), 3, 4)
+    p = torch.as_tensor(tri_p, dtype=torch.float32)
+    assert (rec[:, :, 3] == 0).all()  # pads zero
+    np.testing.assert_array_equal(rec[:, 0, :3].view(np.uint32), tri_p[:, 0].view(np.uint32))
+    for row, k in ((1, 1), (2, 2)):
+        edge = (p[:, k] - p[:, 0]).numpy()  # one float32 rounding, as the kernel did
+        np.testing.assert_array_equal(rec[:, row, :3].view(np.uint32), edge.view(np.uint32))
+    # float64 input is rounded to float32 first, then subtracted in float32
+    np.testing.assert_array_equal(bvh4.pack_tris_cuda(tri_p.astype(np.float64)).view(np.uint32),
+                                  rec.view(np.uint32))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_plain_records_equal_vertices(port_isect, record_tables, ray_batch, any_hit):
+    o, d, t_max = (torch.from_numpy(x) for x in ray_batch)
+    a = traverse.traverse_bvh4_plain(*port_isect.tables, o, d, t_max, any_hit)
+    b = traverse.traverse_bvh4_plain(*record_tables, o, d, t_max, any_hit)
+    if any_hit:
+        assert torch.equal(a, b)
+    else:
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_plain_records_match_xla_anchor(small_scene, ray_batch, record_tables):
+    o, d, t_max = (torch.from_numpy(x) for x in ray_batch)
+    h = j_traverse.intersect_closest(*_jax_args(small_scene, ray_batch))
+    _check_closest(h.prim, h.t, traverse.traverse_bvh4_plain(*record_tables, o, d, t_max, False),
+                   ray_batch[2])
+    occ = j_traverse.intersect_any(*_jax_args(small_scene, ray_batch))
+    _check_any(traverse.traverse_bvh4_plain(*record_tables, o, d, t_max, True).numpy(), occ,
+               ray_batch[2])
+
+
 def test_port_scene_builder_matches_jax():
     js, ts = reduced_bench_scene(j_scene), reduced_bench_scene(scene)
     assert ts.n_tris == js.n_tris == 1348 and ts.n_lights == js.n_lights == 2

@@ -94,6 +94,52 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
 
 
 @pytest.mark.cuda
+def test_wrapper_refuses_vertex_triangle_table():
+    """The BVH4 kernel reads 16-byte records: an (N, 3, 3) table, or records
+    that do not start on a 16-byte boundary, are refused before launch."""
+    _need_card()
+    sc, dbvh = _scene()
+    k = dispatch.make_intersectors(sc, dbvh, "cuda")
+    p = dispatch.make_intersectors(sc, dbvh, "cuda", backend="plain")
+    nodes, recs = k.tables
+    assert recs.shape[1:] == (3, 4) and p.tables[1].shape[1:] == (3, 3)
+    o, d, t_max = _rays("cuda")
+    before = n_launches["bvh4_traverse"]
+    with pytest.raises(ValueError, match="shape"):
+        bvh4_kernel.traverse(nodes, p.tables[1], o, d, t_max)
+    shifted = torch.zeros(recs.numel() + 1, device="cuda")[1:].view(recs.shape)
+    shifted.copy_(recs)
+    with pytest.raises(ValueError, match="16-byte"):
+        bvh4_kernel.traverse(nodes, shifted, o, d, t_max)
+    assert n_launches["bvh4_traverse"] == before
+
+
+@pytest.mark.cuda
+def test_kernel_meets_contract_on_wave_batches():
+    """The nine batches of one bench wave, as the integrator hands them to
+    the kernel: t bit-equal, prim/b1/b2 equal but on exact t ties, occlusion
+    equal, against the plain traversal on the card."""
+    _need_card()
+    sc, dbvh, cam = bench_scene.build_bench_scene()
+    batches = bench_scene.wave_batches(sc, dbvh, cam, "cuda")
+    assert len(batches) == 2 * bench_scene.BENCH_DEPTH + 1
+    k = dispatch.make_intersectors(sc, dbvh, "cuda")
+    p = dispatch.make_intersectors(sc, dbvh, "cuda", backend="plain")
+    ties = 0
+    for i, (name, (o, d, t_max, any_hit)) in enumerate(
+            zip(bench_scene.wave_batch_names(batches), batches)):
+        out = k.fn(*k.tables, o, d, t_max, any_hit)
+        ref = p.fn(*p.tables, o, d, t_max, any_hit)
+        ties += bench_scene.check_hits(out, ref, t_max, any_hit, name)
+        if i in (2, 4, 6):
+            # a bounce's closest-hit batch: the integrator re-sorted its
+            # lanes just before, dead lanes behind the live ones
+            dead = (t_max < 0).int()
+            assert bool((dead[1:] >= dead[:-1]).all())
+    assert ties <= 16
+
+
+@pytest.mark.cuda
 def test_wave_kernel_matches_plain_on_cuda():
     """Same seed, same film through the kernel and the plain traversal."""
     _need_card()
