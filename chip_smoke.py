@@ -10,8 +10,10 @@ points, once per traversal backend, and checks it:
 
 1. environment: a CUDA card is required; prints nvidia-smi's name and power
    limit;
-2. build: compiles the three traversal sources of csrc/ with nvcc, one
-   process each, all at once; prints their ptxas register / spill lines;
+2. build: compiles the three traversal sources and the lab's of csrc/ with
+   nvcc, one process each, all at once; prints their ptxas register / spill
+   lines and fails if a per-ray traversal kernel spills (the lab's kernels
+   may);
 3. BVH4 kernel vs plain: closest-hit and any-hit on 160,000 camera rays and
    160,000 incoherent rays (20% dead lanes), through the CUDA kernel and the
    plain torch traversal, under the kernels' contract
@@ -40,8 +42,8 @@ points, once per traversal backend, and checks it:
 9. a bound per kernel on the incoherent closest batch
    (bench_scene.traversal_bound): the larger of FLOPs / 67 TFLOP/s (float32
    outside the tensor cores) and bytes / 3.35 TB/s, with the box and
-   triangle tests counted by the plain version on the same batch, beside
-   the kernel's device time;
+   triangle tests, and the node records and triangles read, counted by the
+   plain version on the same batch, beside the kernel's device time;
 10. the kernel lab's main path (`python -m nn_bvh_tpu_torch.tools.kernel_lab`,
    the bench scene's camera, bounce and shadow classes at R = 65,536):
    launches of lab_traverse, floor_bench and brless_traverse > 0, and one
@@ -59,16 +61,16 @@ points, once per traversal backend, and checks it:
    for every lane (dead lanes vote in a packet);
 12. the three floor_bench variants at n_iter = 20,000 against their plain
    versions, bit for bit, in ns per iteration, each with its bound;
-13. the nine traversal batches of one bench wave (bench_scene.wave_batches:
-   sample 0 through the default cuda_bvh4 intersectors, recorded as
-   trace_wave hands them over, in its lane order; launch counts reset
-   just before and read just after: 9 launches = 9 traversal calls): for
-   each, its live lanes, the plain walk's work per lane and per warp
-   (bench_scene.warp_work), the kernel's device time and host time, the
-   plain version's time, the bound by phase 9's rule, and phase 3's
-   contract with its tie count; then their sum, the "traversal device ms
-   per wave", and torch.profiler's device time of the kernel on two batches
-   beside device_ms.
+13. the nine traversal batches of one bench wave (sample 0 through the
+   default cuda_bvh4 intersectors, recorded as trace_wave hands them over,
+   in its lane order, as bench_scene.wave_batches does; launch counts reset
+   just before and read just after: 9 launches = 9 traversal calls),
+   through bench_scene.time_traversals: for each, its live lanes, the plain
+   walk's work per lane and per warp (bench_scene.warp_work), the kernel's
+   device time (two readings) and host time, the plain version's time, the
+   bound by phase 9's rule, and phase 3's contract with its tie count; then
+   their sum, the "traversal device ms per wave", and torch.profiler's
+   device time of the kernel on two batches beside device_ms.
 
 Any failure raises (exit code != 0). The last two lines of standard output
 are a JSON record of the kernels and {"ok": true, "device": {...}}.
@@ -289,15 +291,14 @@ def phase_deep_tree(torch, dev, R):
           f"force")
 
 
-def bound_ms(torch, p_isect, o, d, t_max, any_hit=False):
-    """Phase 9's bound of one call (bench_scene.traversal_bound), the tests
-    counted by the plain version on this batch -> (ms, by, work)."""
+def bound_ms(torch, p_isect, o, d, t_max):
+    """Phase 9's bound of one closest-hit call (bench_scene.traversal_bound),
+    the work counted by the plain version on this batch -> (ms, by, work)."""
     from nn_bvh_tpu_torch.tools import bench_scene as bs
 
     counts = {}
-    p_isect.fn(*p_isect.tables, o, d, t_max, any_hit, counts=counts)
-    table_bytes = sum(t.numel() * t.element_size() for t in p_isect.tables)
-    return bs.traversal_bound(counts, t_max, any_hit, table_bytes)
+    p_isect.fn(*p_isect.tables, o, d, t_max, False, counts=counts)
+    return bs.traversal_bound(counts, t_max, False, p_isect.tables[0])
 
 
 def phase_wave_batches(torch, sc, dbvh, cam, dev):
@@ -315,39 +316,32 @@ def phase_wave_batches(torch, sc, dbvh, cam, dev):
           and len(rec.batches) == rec.n_calls == 2 * DEPTH + 1,
           f"wave batches: {len(rec.batches)} batches, launches {counts}")
     p_isect = dispatch.make_intersectors(sc, dbvh, dev, backend="plain")
-    table_bytes = sum(t.numel() * t.element_size() for t in p_isect.tables)
-    kern = lambda *a: rec.fn(*rec.tables, *a)
+    names = bs.wave_batch_names(rec.batches)
+    rows = bs.time_traversals({"bvh4_traverse": lambda *a: rec.fn(*rec.tables, *a)},
+                              dict(zip(names, rec.batches)), p_isect)
     total = {"device_ms": 0.0, "host_us": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "ties": 0}
-    for name, (o, d, t_max, any_hit) in zip(bs.wave_batch_names(rec.batches), rec.batches):
-        work = {}
-        plain_ms, ref = event_ms(torch, lambda: p_isect.fn(*p_isect.tables, o, d, t_max,
-                                                            any_hit, counts=work))
-        ties = bs.check_hits(kern(o, d, t_max, any_hit), ref, t_max, any_hit, f"wave {name}")
-        bound, by, _ = bs.traversal_bound(work, t_max, any_hit, table_bytes)
-        w = bs.warp_work(work)
-        ms = bs.device_ms(lambda: kern(o, d, t_max, any_hit))
-        us = bs.host_us(lambda: kern(o, d, t_max, any_hit))
-        for key, val in (("device_ms", ms), ("host_us", us), ("bound_ms", bound),
-                         ("plain_ms", plain_ms), ("ties", ties)):
+    for name, row in rows.items():
+        ms = bs.mean_ms(row, "bvh4_traverse")
+        for key, val in (("device_ms", ms), ("host_us", row["host_us"]["bvh4_traverse"]),
+                         ("bound_ms", row["bound_ms"]), ("plain_ms", row["plain_ms"]),
+                         ("ties", row["ties"]["bvh4_traverse"])):
             total[key] += val
-        print(f"phase 13: {name:18s} live {w['live']:6d}; nodes/lane {w['nodes_mean']:.2f} "
-              f"p99 {w['nodes_p99']:.0f} max {w['nodes_max']}; tris/lane {w['tris_mean']:.2f} "
-              f"max {w['tris_max']}; warp max nodes {w['warp_nodes']:.1f} tris "
-              f"{w['warp_tris']:.1f}; kernel {ms:.4f} ms device, {us:.1f} us host; plain "
-              f"{plain_ms:.1f} ms; bound {bound:.6f} ms ({by}); contract met, {ties} ties",
-              flush=True)
+        print(f"phase 13: {name:18s} live {row['live']:6d}; nodes/lane {row['nodes_mean']:.2f} "
+              f"p99 {row['nodes_p99']:.0f} max {row['nodes_max']}; tris/lane "
+              f"{row['tris_mean']:.2f} max {row['tris_max']}; warp max nodes "
+              f"{row['warp_nodes']:.1f} tris {row['warp_tris']:.1f}; kernel "
+              f"{'/'.join(f'{v:.4f}' for v in row['device_ms']['bvh4_traverse'])} ms device, "
+              f"{row['host_us']['bvh4_traverse']:.1f} us host; plain {row['plain_ms']:.1f} ms; "
+              f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}; {row['work']}); contract "
+              f"met, {row['ties']['bvh4_traverse']} ties", flush=True)
     print(f"phase 13: traversal device ms per wave {total['device_ms']:.4f} (host "
           f"{total['host_us']:.1f} us, bound {total['bound_ms']:.6f} ms, plain "
           f"{total['plain_ms']:.1f} ms), {total['ties']} tie lanes")
-    for i in (0, 2):
-        o, d, t_max, any_hit = rec.batches[i]
-        call = lambda: kern(o, d, t_max, any_hit)
-        prof = bs.profiler_kernel_us(call, "bvh4_traverse_kernel")
-        ms = bs.device_ms(call)
-        print(f"phase 13: profiler on {bs.wave_batch_names(rec.batches)[i]}: "
-              + ("no device time recorded" if prof is None else
-                 f"{prof[0]:.2f} us per kernel over {prof[1]} launches")
-              + f"; device_ms {ms * 1e3:.2f} us per call")
+    for name in bs.PROFILED:
+        prof = rows[name]["profiler_us"]["bvh4_traverse"]
+        print(f"phase 13: profiler on {name}: "
+              + ("no device time recorded" if prof == 0 else f"{prof:.2f} us per call")
+              + f"; device_ms {bs.mean_ms(rows[name], 'bvh4_traverse') * 1e3:.2f} us per call")
     return total
 
 
@@ -509,9 +503,12 @@ def main() -> int:
         kernels.load(name)
     print(f"phase 2: built {', '.join(sources)} in {time.perf_counter() - t0:.2f} s")
     for name in sources:
-        for line in kernels.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"phase 2: {name}: {line.strip()}")
+        log = kernels.ptxas_log(name)
+        for line in kernels.ptxas_lines(log):
+            print(f"phase 2: {name}: {line}")
+        # the lab's variants with 4 lanes a thread spill by design
+        if name != "kernel_lab":
+            check(kernels.spill_bytes(log) == 0, f"{name} spills: {kernels.ptxas_lines(log)}")
 
     t0 = time.perf_counter()
     sc, dbvh, cam = bench_scene.build_bench_scene()

@@ -26,8 +26,10 @@ Semantics (those of the TPU kernels):
   direction sign on the split axis (the XLA anchor's dirIsNeg order).
 
 `counts`, a dict, receives per-ray int64 counts of box (slab) tests under
-"slab" and of triangle tests under "tri": the work the kernel does on these
-inputs, which chip_smoke.py turns into a bound.
+"slab" and of triangle tests under "tri", and how many distinct node records
+and triangles the walk read under "node_records" and "tri_records" (ints):
+the work and the table bytes the kernel needs on these inputs, which
+tools/bench_scene.traversal_bound turns into a bound.
 
 `intersect_brute` is a chunked O(R*N) oracle with the same triangle test.
 """
@@ -145,9 +147,17 @@ def _leaf(li, off, cnt, tris, o, d, t_best, prim, b1, b2, any_hit):
     return got, tested
 
 
-def _finish(t_best, prim, b1, b2, any_hit, counts, n_slab, n_tri):
+def _mark_tris(seen, off, tested):
+    """Marks triangles off .. off+tested-1 of each lane in `seen` (bool)."""
+    jj = torch.arange(bvh4.MAX_LEAF, device=off.device)
+    seen[(off[:, None] + jj[None, :])[jj[None, :] < tested[:, None]]] = True
+
+
+def _finish(t_best, prim, b1, b2, any_hit, counts, n_slab, n_tri, seen_node, seen_tri):
     if counts is not None:
         counts["slab"], counts["tri"] = n_slab, n_tri
+        counts["node_records"] = int(seen_node.sum())
+        counts["tri_records"] = int(seen_tri.sum())
     if any_hit:
         return prim >= 0
     return Hit(t=torch.where(prim < 0, torch.inf, t_best), prim=prim, b1=b1, b2=b2)
@@ -168,6 +178,8 @@ def _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, leaf_bits, stack_dep
     t_best, prim, b1, b2, stack, sp = _init_lanes(t_max, any_hit, stack_depth)
     n_slab = torch.zeros(R, dtype=torch.int64, device=o.device)
     n_tri = torch.zeros(R, dtype=torch.int64, device=o.device)
+    seen_node = torch.zeros(nodes.shape[0], dtype=torch.bool, device=o.device)
+    seen_tri = torch.zeros(tris.shape[0], dtype=torch.bool, device=o.device)
     slot = torch.arange(width, device=o.device)
 
     while True:
@@ -202,20 +214,23 @@ def _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, leaf_bits, stack_dep
             stack[rows, cols] = smeta[push]
             spi[inner] = base + nhit
             n_slab[ii] += width
+            seen_node[e] = True
 
         # leaf: test up to 8 triangles
         leaf = ~inner
         li = idx[leaf]
         if li.numel():
             u = -entry[leaf].long() - 1
-            got, tested = _leaf(li, u >> leaf_bits, (u & ((1 << leaf_bits) - 1)) + 1,
+            off = u >> leaf_bits
+            got, tested = _leaf(li, off, (u & ((1 << leaf_bits) - 1)) + 1,
                                 tris, o, d, t_best, prim, b1, b2, any_hit)
             n_tri[li] += tested
+            _mark_tris(seen_tri, off, tested)
             if any_hit:
                 spi[leaf] = torch.where(got, -1, spi[leaf])
         sp[idx] = spi
 
-    return _finish(t_best, prim, b1, b2, any_hit, counts, n_slab, n_tri)
+    return _finish(t_best, prim, b1, b2, any_hit, counts, n_slab, n_tri, seen_node, seen_tri)
 
 
 def traverse_bvh4_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor,
@@ -252,6 +267,8 @@ def traverse_binary_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tens
     t_best, prim, b1, b2, stack, sp = _init_lanes(t_max, any_hit, stack_depth)
     n_slab = torch.zeros(R, dtype=torch.int64, device=o.device)
     n_tri = torch.zeros(R, dtype=torch.int64, device=o.device)
+    seen_node = torch.zeros(nodes.shape[0], dtype=torch.bool, device=o.device)
+    seen_tri = torch.zeros(tris.shape[0], dtype=torch.bool, device=o.device)
 
     while True:
         idx = torch.nonzero(sp >= 0).squeeze(1)
@@ -262,6 +279,7 @@ def traverse_binary_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tens
         spi = spi - 1
         ok, _ = _slab(lo_all[node], hi_all[node], o[idx], inv[idx], t_best[idx])
         n_slab[idx] += 1
+        seen_node[node] = True
         meta = meta_all[node]
         off, count, axis = meta[:, 0], meta[:, 1] & 31, meta[:, 1] >> 5
 
@@ -282,11 +300,12 @@ def traverse_binary_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tens
             got, tested = _leaf(li, off[leaf].long(), count[leaf].long(), tris, o, d,
                                 t_best, prim, b1, b2, any_hit)
             n_tri[li] += tested
+            _mark_tris(seen_tri, off[leaf].long(), tested)
             if any_hit:
                 spi[leaf] = torch.where(got, -1, spi[leaf])
         sp[idx] = spi
 
-    return _finish(t_best, prim, b1, b2, any_hit, counts, n_slab, n_tri)
+    return _finish(t_best, prim, b1, b2, any_hit, counts, n_slab, n_tri, seen_node, seen_tri)
 
 
 def intersect_brute(tri_p: torch.Tensor, o, d, t_max, chunk: int = 4096) -> Hit:

@@ -8,18 +8,21 @@
 // 128 rays.
 //
 // What bounds it on this card: latency, not bytes or operations. A bench
-// wave's nine calls need 0.016 ms by bytes (the 2.5 MB of tables fit the
-// 50 MB L2) and less by float32 operations, but each node visit is a chain of
-// dependent loads (node record -> slab tests -> sort -> next entry), and a
-// warp runs as long as its longest lane: on the wave's bounce and shadow
-// batches a warp's longest lane makes about twice the node visits and 3-4
-// times the triangle tests of its average lane. Measured by device time
-// (tools/bvh4_ab.py on the nine wave batches, NVIDIA H100 80GB HBM3, 700 W;
-// PERF.md), each step of the design against the one before:
+// wave's nine calls could take 0.0125 ms at the memory rate or float32 peak
+// (the rays, and once each the node records and triangles a call reads:
+// 0.33-1.9 MB of the 2.46 MB of tables, which fit the 50 MB L2) and take
+// 0.49 ms, 39 times that: each node visit is a chain of dependent loads
+// (node record -> slab tests -> sort -> next entry), and a warp runs as
+// long as its longest lane: on the wave's bounce and shadow batches a warp's
+// longest lane makes about twice the node visits and 3-4 times the triangle
+// tests of its average lane. Measured by device time (tools/bvh4_ab.py on
+// the nine wave batches, NVIDIA H100 80GB HBM3, 700 W; PERF.md), each step
+// of the design against the one before:
 // (a) 16-byte triangle records (accel/bvh4.py::pack_tris_cuda: v0 and the
-//     two edges, rounded once on the host as the subtraction here did): a
-//     triangle is three float4 loads, the next triangle's issued before the
-//     current one is tested, and the six subtractions are gone; -15%.
+//     two edges, rounded once on the host as the vertex table's load_tri in
+//     traverse_common.cuh rounds them): a triangle is three float4 loads,
+//     the next triangle's issued before the current one is tested, and the
+//     six subtractions are gone; -15%.
 // (b) while-while traversal with postponed leaves, speculative (Aila and
 //     Laine, HPG 2009): node steps run warp-wide while any lane is still
 //     looking for a leaf; a lane that finds one parks it in a register and
@@ -138,8 +141,8 @@ bvh4_traverse_kernel(const float4* __restrict__ nodes,
     if (!__any_sync(kFull, leaf != kEmpty)) break;
     if (leaf != kEmpty) {
       const int u = -leaf - 1;
-      const bool hit = trav::leaf_test_rec<kAnyHit>(ray, tris, u >> 4, (u & 15) + 1,
-                                                    t_best, prim, b1, b2);
+      const bool hit = trav::leaf_test<kAnyHit>(ray, tris, u >> 4, (u & 15) + 1, t_best,
+                                                prim, b1, b2);
       leaf = kEmpty;
       if (kAnyHit && hit) {
         next = kEmpty;

@@ -265,7 +265,7 @@ brless_kernel(const float4* __restrict__ nodes, const float* __restrict__ tris,
         // the table (the result is masked; the reference reads past its block)
         const int tj = min(max(min(off + j, off + cnt_leaf - 1), 0), n_tris - 1);
         float t, u1, u2;
-        const bool h = trav::tri_test(L.ray[i], tris + (size_t)tj * 9, tc, &t, &u1, &u2) &&
+        const bool h = trav::tri_test(L.ray[i], trav::load_tri(tris, tj), tc, &t, &u1, &u2) &&
                        j < cnt_leaf && (leaf_when || gate);
         tc = h ? t : tc;
         pc = h ? tj : pc;

@@ -14,13 +14,15 @@
 // - any-hit: a lane with t_max < 0 reports occluded (prim = 0), a live lane
 //   stops at its first hit; only prim is written.
 //
-// Triangles: (N, 3, 3) floats, [vertex][axis] (tri_test, leaf_test), or the
-// 16-byte records of bvh4_traverse.cu (tri_test_rec, leaf_test_rec).
+// Triangles: (N, 3, 3) floats, [vertex][axis], or the 16-byte records of
+// bvh4_traverse.cu; load_tri reads either, tri_test and leaf_test take both.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace trav {
 
@@ -59,64 +61,36 @@ __device__ __forceinline__ bool slab(const Ray& r, float lox, float loy,
   return (tn <= tf) && (tf > 0.f) && (tn < t_best);
 }
 
-// Moller-Trumbore against the triangle at v[0..8].
-__device__ __forceinline__ bool tri_test(const Ray& r,
-                                         const float* __restrict__ v,
+// One triangle as Moller-Trumbore takes it: a vertex and the two edges from
+// it (the w components are unused).
+struct Tri {
+  float4 v, e1, e2;
+};
+
+// Triangle i of an (N, 3, 3) vertex table: nine scalar loads, the edges
+// formed here.
+__device__ __forceinline__ Tri load_tri(const float* __restrict__ tris, int i) {
+  const float* v = tris + (size_t)i * 9;
+  const float x0 = __ldg(v + 0), y0 = __ldg(v + 1), z0 = __ldg(v + 2);
+  return {make_float4(x0, y0, z0, 0.f),
+          make_float4(__ldg(v + 3) - x0, __ldg(v + 4) - y0, __ldg(v + 5) - z0, 0.f),
+          make_float4(__ldg(v + 6) - x0, __ldg(v + 7) - y0, __ldg(v + 8) - z0, 0.f)};
+}
+
+// Triangle i of a table of 16-byte records (bvh4_traverse.cu;
+// accel/bvh4.py::pack_tris_cuda): (N, 3, 4) floats, rows
+// [v0, 0 | e1, 0 | e2, 0], the edges rounded once on the host as the
+// subtractions of the other load_tri round them. Three float4 loads.
+__device__ __forceinline__ Tri load_tri(const float4* __restrict__ tris, int i) {
+  const float4* p = tris + (size_t)i * 3;
+  return {__ldg(p), __ldg(p + 1), __ldg(p + 2)};
+}
+
+// Moller-Trumbore.
+__device__ __forceinline__ bool tri_test(const Ray& r, const Tri& tri,
                                          float t_best, float* t_out,
                                          float* u1_out, float* u2_out) {
-  const float x0 = __ldg(v + 0), y0 = __ldg(v + 1), z0 = __ldg(v + 2);
-  const float e1x = __ldg(v + 3) - x0, e1y = __ldg(v + 4) - y0,
-              e1z = __ldg(v + 5) - z0;
-  const float e2x = __ldg(v + 6) - x0, e2y = __ldg(v + 7) - y0,
-              e2z = __ldg(v + 8) - z0;
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const bool ok_det = fabsf(det) > 1e-12f;
-  const float inv_det = ok_det ? 1.0f / det : 0.f;
-  const float sx = r.ox - x0, sy = r.oy - y0, sz = r.oz - z0;
-  const float u1 = (sx * px + sy * py + sz * pz) * inv_det;
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  const float u2 = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  *t_out = t;
-  *u1_out = u1;
-  *u2_out = u2;
-  return ok_det && (u1 >= -1e-7f) && (u2 >= -1e-7f) &&
-         (u1 + u2 <= 1.0000001f) && (t > 0.f) && (t < t_best);
-}
-
-// Tests triangles off .. off+cnt-1 in order. Closest-hit keeps the first
-// smallest t; any-hit returns true at its first hit.
-template <bool kAnyHit>
-__device__ __forceinline__ bool leaf_test(const Ray& r,
-                                          const float* __restrict__ tris,
-                                          int off, int cnt, float& t_best,
-                                          int& prim, float& b1, float& b2) {
-  for (int j = 0; j < cnt; ++j) {
-    float t, u1, u2;
-    if (tri_test(r, tris + (size_t)(off + j) * 9, t_best, &t, &u1, &u2)) {
-      prim = off + j;
-      b1 = u1;
-      b2 = u2;
-      if (kAnyHit) return true;
-      t_best = t;
-    }
-  }
-  return false;
-}
-
-// 16-byte triangle records (bvh4_traverse.cu; accel/bvh4.py::pack_tris_cuda):
-// (N, 3, 4) floats, rows [v0, 0 | e1, 0 | e2, 0] with e1 = v1 - v0 and
-// e2 = v2 - v0 rounded once on the host, the rounding tri_test does here.
-// Moller-Trumbore on one such record: tri_test's arithmetic after its edges.
-__device__ __forceinline__ bool tri_test_rec(const Ray& r, const float4 v,
-                                             const float4 e1, const float4 e2,
-                                             float t_best, float* t_out,
-                                             float* u1_out, float* u2_out) {
+  const float4 v = tri.v, e1 = tri.e1, e2 = tri.e2;
   const float px = r.dy * e2.z - r.dz * e2.y;
   const float py = r.dz * e2.x - r.dx * e2.z;
   const float pz = r.dx * e2.y - r.dy * e2.x;
@@ -137,33 +111,38 @@ __device__ __forceinline__ bool tri_test_rec(const Ray& r, const float4 v,
          (u1 + u2 <= 1.0000001f) && (t > 0.f) && (t < t_best);
 }
 
-// leaf_test over 16-byte records: three float4 loads per triangle, the next
-// triangle's loads issued before the current one is tested.
-template <bool kAnyHit>
-__device__ __forceinline__ bool leaf_test_rec(const Ray& r,
-                                              const float4* __restrict__ tris,
-                                              int off, int cnt, float& t_best,
-                                              int& prim, float& b1, float& b2) {
-  const float4* p = tris + (size_t)off * 3;
-  float4 v = __ldg(p), e1 = __ldg(p + 1), e2 = __ldg(p + 2);
-  for (int j = 0; j < cnt; ++j) {
-    float4 nv = v, ne1 = e1, ne2 = e2;
-    if (j + 1 < cnt) {
-      nv = __ldg(p + 3 * j + 3);
-      ne1 = __ldg(p + 3 * j + 4);
-      ne2 = __ldg(p + 3 * j + 5);
-    }
+// Tests triangles off .. off+cnt-1 of either table in order. Closest-hit
+// keeps the first smallest t; any-hit returns true at its first hit. Over
+// 16-byte records the next triangle's three loads are issued before the
+// current one is tested; over (N, 3, 3) vertices each triangle is loaded when
+// it is tested, since there the early loads' extra live registers made the
+// kernel lab's packet kernels spill more and run 10-20% slower.
+template <bool kAnyHit, typename T>
+__device__ __forceinline__ bool leaf_test(const Ray& r, const T* __restrict__ tris,
+                                          int off, int cnt, float& t_best,
+                                          int& prim, float& b1, float& b2) {
+  // -> true when an any-hit walk may stop
+  auto test = [&](const Tri& tri, int j) {
     float t, u1, u2;
-    if (tri_test_rec(r, v, e1, e2, t_best, &t, &u1, &u2)) {
-      prim = off + j;
-      b1 = u1;
-      b2 = u2;
-      if (kAnyHit) return true;
-      t_best = t;
+    if (!tri_test(r, tri, t_best, &t, &u1, &u2)) return false;
+    prim = off + j;
+    b1 = u1;
+    b2 = u2;
+    if (!kAnyHit) t_best = t;
+    return kAnyHit;
+  };
+  if constexpr (std::is_same<T, float4>::value) {
+    Tri tri = load_tri(tris, off);
+    for (int j = 0; j < cnt; ++j) {
+      Tri next = tri;
+      if (j + 1 < cnt) next = load_tri(tris, off + j + 1);
+      if (test(tri, j)) return true;
+      tri = next;
     }
-    v = nv;
-    e1 = ne1;
-    e2 = ne2;
+  } else {
+    for (int j = 0; j < cnt; ++j) {
+      if (test(load_tri(tris, off + j), j)) return true;
+    }
   }
   return false;
 }

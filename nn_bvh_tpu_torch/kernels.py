@@ -5,7 +5,8 @@ nvcc into a shared library at first use, then loaded with ctypes. The library
 lands in `build/kernels/` at the repository root, named by a hash of the
 source, the shared headers (`csrc/*.cuh`) and the flags, so an edited source
 rebuilds and an unchanged one is reused. `build` compiles several sources at
-once, one nvcc process each. Nothing here runs at import: the CPU-only test
+once, one nvcc process each, and keeps each build's ptxas report beside its
+library (`ptxas_log`). Nothing here runs at import: the CPU-only test
 environment imports every module and has no nvcc.
 
 A failed build raises; there is no fallback.
@@ -18,6 +19,7 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -29,10 +31,6 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 # contraction into FMA), so a mismatch between the two is a logic error.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-# ptxas register / spill report of each build made in this process
-build_logs: dict[str, str] = {}
-
 
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
@@ -78,7 +76,8 @@ def build(*names: str) -> None:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for csrc/{name}.cu:\n{err}")
             continue
-        build_logs[name] = err
+        with open(f"{_so_path(name)}.ptxas", "w") as f:
+            f.write(err)
         os.replace(tmp, _so_path(name))
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -89,3 +88,25 @@ def load(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` if needed and return the loaded library."""
     build(name)
     return ctypes.CDLL(_so_path(name))
+
+
+def ptxas_log(name: str) -> str:
+    """The ptxas report (-Xptxas -v) of the library of `csrc/<name>.cu`,
+    written when it was built."""
+    with open(f"{_so_path(name)}.ptxas") as f:
+        return f.read()
+
+
+def ptxas_lines(log: str) -> list:
+    """The entry, register, stack-frame and spill lines of a ptxas report."""
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
+def spill_bytes(log: str) -> int:
+    """Bytes of spill stores and spill loads over every entry of a ptxas
+    report; raises when the report states none (not a -Xptxas -v log)."""
+    found = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
+    if not found:
+        raise ValueError("the ptxas report has no spill lines")
+    return sum(int(n) for n in found)

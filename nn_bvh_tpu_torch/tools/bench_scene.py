@@ -1,12 +1,15 @@
 """What chip_smoke.py and the tools share: the bench scene and its wave's
 configuration, the ray batches that one bench wave hands the traversal
 (`wave_batches`) and chip_smoke's probe batches, the per-warp work of a
-batch (`warp_work`), a synthetic deep tree for the deep-stack traversal, a
-synthetic widening tree for the lab's stack check, and timing on the card:
-`device_ms` (device time per call, many calls between two CUDA events on a
-stream held busy while the host enqueues them), `host_us` (the host's time
-per call) and `median_ms` (single calls between events; host and device
-time together, kept for the packet kernels)."""
+batch (`warp_work`), a traversal call's bound and hit contract, a synthetic
+deep tree for the deep-stack traversal, a synthetic widening tree for the
+lab's stack check, and timing on the card: `device_ms` (device time per
+call, many calls between two CUDA events on a stream held busy while the
+host enqueues them), `host_us` (the host's time per call), `profiler_us`
+(torch.profiler's device time, also for a call that waits for the device),
+`median_ms` (single calls between events; host and device time together,
+kept for the packet kernels) and `time_traversals` (traversal kernels held
+to the contract and timed side by side on named batches)."""
 
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ WARP = 32
 # of a wide node's children is not counted.
 FLOPS_SLAB = 26
 FLOPS_TRI = 58
+TRI_BYTES = 36        # an (N, 3, 3) float32 triangle, whatever layout a kernel reads
 PEAK_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
@@ -218,25 +222,25 @@ class RecordingIntersectors(dispatch.Intersectors):
         return super()._call(o, d, t_max, any_hit)
 
 
-def bench_wave(sc, dbvh, cam, isect, sample: int = 0) -> film_mod.Film:
-    """One bench wave (bench_config) of `sample` through `isect` on a new
+def bench_wave(sc, dbvh, cam, isect) -> film_mod.Film:
+    """One bench wave (bench_config, sample 0) through `isect` on a new
     film -> the film."""
     cfg, scfg = bench_config()
     wave = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=isect)
-    return wave(film_mod.make_film(cam.height, cam.width, isect.device), sample)
+    return wave(film_mod.make_film(cam.height, cam.width, isect.device), 0)
 
 
-def wave_batches(sc, dbvh, cam, device=None, backend=None) -> list:
+def wave_batches(sc, dbvh, cam, device=None) -> list:
     """The traversal batches of one bench wave (sample 0, seed 0) through
-    the default intersectors of `device` (cuda_bvh4 on the card), or
-    `backend`: [(o, d, t_max, any_hit)], as trace_wave hands them over.
+    the default intersectors of `device` (cuda_bvh4 on the card):
+    [(o, d, t_max, any_hit)], as trace_wave hands them over.
     Depth 4 gives 9: camera closest, then shadow any-hit and bounce closest
     for each depth. On a CUDA backend the lanes are in the integrator's
     order: re-sorted at the start of each bounce (dead, octant, Morton), so
     a bounce's closest-hit batch has its dead lanes last; its shadow batch
     and the trailing closest-hit batch keep that order, with the lanes that
     died since among the live ones."""
-    rec = RecordingIntersectors(dispatch.make_intersectors(sc, dbvh, device, backend=backend))
+    rec = RecordingIntersectors(dispatch.make_intersectors(sc, dbvh, device))
     bench_wave(sc, dbvh, cam, rec)
     return rec.batches
 
@@ -282,20 +286,25 @@ def bound_of(flops, nbytes):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def traversal_bound(counts: dict, t_max: torch.Tensor, any_hit: bool, table_bytes: int):
+def traversal_bound(counts: dict, t_max: torch.Tensor, any_hit: bool, nodes: torch.Tensor):
     """Least time of one traversal call: the box and triangle tests that the
     plain walk counted on this batch (`counts`), and the bytes: o and d of
     the live lanes (the only ones read), t_max, the outputs (t, prim, b1, b2;
-    any-hit writes prim only) and the tables once (`table_bytes`, those of
-    the plain backend: (N, 3, 3) triangles). -> (ms, "bytes" | "operations",
-    work dict)."""
+    any-hit writes prim only), and once each the node records of `nodes`
+    (the walk's node table) and the triangles (TRI_BYTES each) that the walk
+    read on this batch (counts' "node_records" and "tri_records"), not the
+    whole tables. -> (ms, "bytes" | "operations", work dict with the ray
+    bytes and the table bytes apart)."""
     slab, tri = int(counts["slab"].sum()), int(counts["tri"].sum())
     flops = slab * FLOPS_SLAB + tri * FLOPS_TRI
     R = t_max.numel()
     live = int(((t_max >= 0) if any_hit else (t_max > 0)).sum())
-    nbytes = live * (12 + 12) + R * 4 + R * (4 if any_hit else 16) + table_bytes
-    return (*bound_of(flops, nbytes), dict(slab_tests=slab, tri_tests=tri, flops=flops,
-                                           bytes=nbytes))
+    ray_bytes = live * (12 + 12) + R * 4 + R * (4 if any_hit else 16)
+    table_bytes = (counts["node_records"] * nodes[0].numel() * nodes.element_size()
+                   + counts["tri_records"] * TRI_BYTES)
+    return (*bound_of(flops, ray_bytes + table_bytes),
+            dict(slab_tests=slab, tri_tests=tri, flops=flops, ray_bytes=ray_bytes,
+                 table_bytes=table_bytes))
 
 
 def check_hits(out, ref, t_max: torch.Tensor, any_hit: bool, label: str) -> int:
@@ -346,10 +355,6 @@ def _sleep_cycles_per_ms() -> float:
     return cycles / start.elapsed_time(end)
 
 
-class HostSync(RuntimeError):
-    """fn waits for the device, so device_ms cannot hold the stream."""
-
-
 def device_ms(fn, n: int = 50) -> float:
     """Device time of one call of fn (ms) on the current stream: after a
     warm-up call, the stream is held busy by torch.cuda._sleep while the
@@ -357,9 +362,8 @@ def device_ms(fn, n: int = 50) -> float:
     enclose only the device's work (and the gaps between back-to-back
     launches). If the start event has already passed when the host is done
     enqueuing, the sleep was too short and the measurement is repeated with
-    a longer one; when that keeps happening, fn synchronises with the device
-    and HostSync is raised (`profiler_device_us` measures such a fn).
-    Raises without a card."""
+    a longer one; when that keeps happening, fn waits for the device and
+    this raises (`profiler_us` measures such a fn). Raises without a card."""
     _need_card("device_ms")
     fn()
     torch.cuda.synchronize()
@@ -381,8 +385,9 @@ def device_ms(fn, n: int = 50) -> float:
         if held:
             return start.elapsed_time(end) / n
         hold_ms *= 4
-    raise HostSync("device_ms: the start event passed before the host had enqueued the "
-                   "calls, however long the stream was held: the function waits for the device")
+    raise RuntimeError("device_ms: the start event passed before the host had enqueued the "
+                       "calls, however long the stream was held: the function waits for the "
+                       "device")
 
 
 def host_us(fn, n: int = 50) -> float:
@@ -400,39 +405,15 @@ def host_us(fn, n: int = 50) -> float:
     return dt / n * 1e6
 
 
-def profiler_kernel_us(fn, match: str, n: int = 20):
-    """torch.profiler's device time of the kernels whose name contains
-    `match` over n calls of fn -> (microseconds per launch, launches), or
-    None when the profiler records no device time for them."""
+def profiler_us(fn, match: str = "", n: int = 20) -> float:
+    """torch.profiler's device time per call of fn (microseconds) over n
+    calls: of the kernels whose name contains `match`, or of every kernel
+    and copy fn runs (the device's busy time, measurable also for a fn that
+    waits for the device: sorts, compactions). 0.0 when the profiler records
+    no device time. Raises without a card."""
     from torch.profiler import ProfilerActivity, profile
 
-    _need_card("profiler_kernel_us")
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if match in ev.key:
-            t = getattr(ev, "device_time_total", None)
-            if t is None:
-                t = getattr(ev, "cuda_time_total", 0.0)
-            total += t
-            count += ev.count
-    if count == 0 or total <= 0:
-        return None
-    return total / count, count
-
-
-def profiler_device_us(fn, n: int = 20) -> float:
-    """torch.profiler's device time of every kernel and copy that n calls
-    of fn run, per call (microseconds): the device's busy time, measurable
-    also for a fn that synchronises (sorts, compactions)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    _need_card("profiler_device_us")
+    _need_card("profiler_us")
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -441,8 +422,58 @@ def profiler_device_us(fn, n: int = 20) -> float:
         torch.cuda.synchronize()
     total = 0.0
     for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        total += t
+        if match in ev.key:
+            t = getattr(ev, "self_device_time_total", None)
+            total += getattr(ev, "self_cuda_time_total", 0.0) if t is None else t
     return total / n
+
+
+PROFILED = ("camera closest", "bounce d1 closest")
+
+
+def time_traversals(fns: dict, batches: dict, plain: dispatch.Intersectors) -> dict:
+    """Traversal kernels side by side. fns {label: fn(o, d, t_max, any_hit)},
+    batches {name: (o, d, t_max, any_hit)}, `plain` the plain intersectors
+    of the same scene. On each batch, the plain walk (one call between two
+    CUDA events) gives the reference, its counts, the per-warp work
+    (warp_work) and the bound (traversal_bound); every kernel is held to
+    check_hits. Then each kernel's device time on every batch is read in
+    turns, the labels in order and then in reverse, so each is read twice
+    around the others; then its host time per call, and torch.profiler's
+    time of its kernels (`match` "traverse") on the batches named in
+    PROFILED. -> {name: {"live", warp_work's keys, "bound_ms", "bound_by",
+    "work", "plain_ms", "ties", "device_ms" (two readings), "host_us",
+    "profiler_us"; the last four by label}}."""
+    rows = {}
+    for name, (o, d, t_max, any_hit) in batches.items():
+        counts = {}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = plain.fn(*plain.tables, o, d, t_max, any_hit, counts=counts)
+        end.record()
+        torch.cuda.synchronize()
+        bound, by, work = traversal_bound(counts, t_max, any_hit, plain.tables[0])
+        rows[name] = {**warp_work(counts), "bound_ms": bound, "bound_by": by, "work": work,
+                      "plain_ms": start.elapsed_time(end),
+                      "ties": {label: check_hits(fn(o, d, t_max, any_hit), ref, t_max, any_hit,
+                                                 f"{label} {name}")
+                               for label, fn in fns.items()},
+                      "device_ms": {}, "host_us": {}, "profiler_us": {}}
+    for label in [*fns, *reversed(fns)]:
+        for name, (o, d, t_max, any_hit) in batches.items():
+            rows[name]["device_ms"].setdefault(label, []).append(
+                device_ms(lambda: fns[label](o, d, t_max, any_hit)))
+    for label, fn in fns.items():
+        for name, (o, d, t_max, any_hit) in batches.items():
+            call = lambda: fn(o, d, t_max, any_hit)
+            rows[name]["host_us"][label] = host_us(call)
+            if name in PROFILED:
+                rows[name]["profiler_us"][label] = profiler_us(call, "traverse")
+    return rows
+
+
+def mean_ms(row: dict, label: str) -> float:
+    """The mean of a time_traversals row's device-time readings of `label`."""
+    readings = row["device_ms"][label]
+    return sum(readings) / len(readings)

@@ -1,8 +1,7 @@
 """Device time of BVH4 traversal kernel sources, side by side, on the ray
 batches of the bench wave.
 
-    python -m nn_bvh_tpu_torch.tools.bvh4_ab [LABEL=PATH[:33] ...] [--n 50] [--others]
-        [--json PATH]
+    python -m nn_bvh_tpu_torch.tools.bvh4_ab [LABEL=PATH[:33] ...] [--json PATH]
 
 Each PATH is a CUDA source with the C entry `bvh4_traverse` of
 csrc/bvh4_traverse.cu (the same signature and node table); `:33` marks one
@@ -10,20 +9,13 @@ that reads (N, 3, 3) vertex triangles, otherwise it reads the 16-byte
 records of `bvh4.pack_tris_cuda`. The tree's own kernel is always there,
 labelled "tree". Every source is built with `kernels.NVCC_FLAGS` (and `-I`
 the package's csrc/ and the source's own directory) and its ptxas report is
-printed. On the bench scene (`bench_scene.build_bench_scene`), each kernel
-is first held against the plain traversal on every batch
-(`bench_scene.check_hits`), then timed by `bench_scene.device_ms` on the
-nine batches of one bench wave (`bench_scene.wave_batches`) and on
-chip_smoke phase 3's four ("probe camera" and "probe incoherent" rays,
-closest and any-hit),
-in turns: the sources in order, then in reverse order, so each is read
-twice around the others. Beside each: the plain walk's per-warp work
-(`bench_scene.warp_work`), the bound (`bench_scene.traversal_bound`), the
-host time of a call (`bench_scene.host_us`), and torch.profiler's device
-time of the kernel on two batches. With --others, the tree's other
-traversal kernels (cuda_binary, cuda_binary_deep, cuda_bvh8) and the tree's
-cuda_bvh4 are also timed on phase 3's batches by device_ms, host_us and one
-launch between two events (`bench_scene.median_ms`).
+printed. On the bench scene (`bench_scene.build_bench_scene`), the nine
+batches of one bench wave (`bench_scene.wave_batches`) and chip_smoke phase
+3's four ("probe camera" and "probe incoherent" rays, closest and any-hit)
+go through `bench_scene.time_traversals`: every kernel held against the
+plain traversal, then read twice by `bench_scene.device_ms` in turns around
+the others, with the plain walk's per-warp work, the bound, the host time of
+a call and torch.profiler's time on two batches beside it.
 
 Needs a CUDA card (exits 1 without one). The last line of standard output
 is one JSON object with the summary, the card's name and its power limit;
@@ -44,8 +36,6 @@ import torch
 from .. import kernels
 from ..accel import bvh4_kernel, dispatch, kernel_launch
 from . import bench_scene as bs
-
-PROFILED = ("probe incoherent closest", "bounce d1 closest")
 
 
 def build_sources(sources: dict) -> dict:
@@ -72,16 +62,9 @@ def build_sources(sources: dict) -> dict:
     return built
 
 
-def ptxas_lines(log: str) -> list:
-    return [ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="*", help="LABEL=PATH[:33]")
-    ap.add_argument("--n", type=int, default=50, help="calls per device_ms reading")
-    ap.add_argument("--others", action="store_true")
     ap.add_argument("--json", help="write the full report to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -93,119 +76,74 @@ def main(argv=None) -> int:
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    paths, layout = {}, {}
+    paths, vertex_tris = {}, set()
     for spec in args.sources:
         label, path = spec.split("=", 1)
-        layout[label] = "33" if path.endswith(":33") else "34"
-        paths[label] = path[:-3] if path.endswith(":33") else path
+        if path.endswith(":33"):
+            vertex_tris.add(label)
+            path = path[:-3]
+        paths[label] = path
     paths["tree"] = os.path.join(kernels.CSRC, "bvh4_traverse.cu")
-    layout["tree"] = "34"
     built = build_sources(paths)
-    for label, (_, log) in built.items():
-        for line in ptxas_lines(log):
+    ptxas = {label: kernels.ptxas_lines(log) for label, (_, log) in built.items()}
+    for label, lines in ptxas.items():
+        for line in lines:
             print(f"ptxas {label}: {line}", flush=True)
 
     sc, dbvh, cam = bs.build_bench_scene()
     k_isect = dispatch.make_intersectors(sc, dbvh, dev, backend="cuda_bvh4")
     p_isect = dispatch.make_intersectors(sc, dbvh, dev, backend="plain")
     nodes, rec_tris = k_isect.tables
-    vert_tris = p_isect.tables[1]
-    table_bytes = sum(t.numel() * t.element_size() for t in p_isect.tables)
-
-    batches = {}
-    wave = bs.wave_batches(sc, dbvh, cam, dev)
-    for name, b in zip(bs.wave_batch_names(wave), wave):
-        batches[name] = b
-    for name, (o, d, t_max) in bs.probe_batches(sc, cam, dev).items():
-        batches[f"probe {name} closest"] = (o, d, t_max, False)
-        batches[f"probe {name} any"] = (o, d, t_max, True)
-    wave_names = list(bs.wave_batch_names(wave))
 
     def kernel_fn(label):
         fn = built[label][0]
-        tris, shape = (vert_tris, (None, 3, 3)) if layout[label] == "33" else (rec_tris,
-                                                                            bvh4_kernel.TRI_SHAPE)
+        tris, shape = ((p_isect.tables[1], (None, 3, 3)) if label in vertex_tris
+                       else (rec_tris, bvh4_kernel.TRI_SHAPE))
         return lambda o, d, t, a: kernel_launch.launch(fn, f"ab:{label}", nodes, (None, 4, 8),
                                                        tris, shape, o, d, t, a)
 
+    wave = bs.wave_batches(sc, dbvh, cam, dev)
+    wave_names = bs.wave_batch_names(wave)
+    batches = dict(zip(wave_names, wave))
+    for name, (o, d, t_max) in bs.probe_batches(sc, cam, dev).items():
+        batches[f"probe {name} closest"] = (o, d, t_max, False)
+        batches[f"probe {name} any"] = (o, d, t_max, True)
     fns = {label: kernel_fn(label) for label in built}
-    report = {"device": torch.cuda.get_device_name(0), "name_power_limit": smi,
-              "n": args.n, "batches": {}, "ptxas": {k: ptxas_lines(v[1]) for k, v in built.items()}}
-    for name, (o, d, t_max, any_hit) in batches.items():
-        counts = {}
-        ref = p_isect.fn(*p_isect.tables, o, d, t_max, any_hit, counts=counts)
-        bound, by, work = bs.traversal_bound(counts, t_max, any_hit, table_bytes)
-        row = {"lanes": o.shape[0], "any_hit": any_hit, "bound_ms": bound, "bound_by": by,
-               **work, **bs.warp_work(counts), "ties": {}, "device_ms": {}, "host_us": {}}
-        for label, fn in fns.items():
-            row["ties"][label] = bs.check_hits(fn(o, d, t_max, any_hit), ref, t_max, any_hit,
-                                               f"{label} {name}")
-        report["batches"][name] = row
-        print(f"{name:22s} live {row['live']:7d}  nodes/lane {row['nodes_mean']:.2f} "
+    rows = bs.time_traversals(fns, batches, p_isect)
+
+    for name, row in rows.items():
+        print(f"{name:24s} live {row['live']:7d}  nodes/lane {row['nodes_mean']:.2f} "
               f"p99 {row['nodes_p99']:.0f} max {row['nodes_max']}  tris/lane "
               f"{row['tris_mean']:.2f} max {row['tris_max']}  warp max nodes "
-              f"{row['warp_nodes']:.2f} tris {row['warp_tris']:.2f}  bound {bound:.6f} ms "
-              f"({by})  ties {row['ties']}", flush=True)
-
-    order = list(fns) + list(fns)[::-1]
-    for label in order:
-        for name, (o, d, t_max, any_hit) in batches.items():
-            ms = bs.device_ms(lambda: fns[label](o, d, t_max, any_hit), args.n)
-            report["batches"][name]["device_ms"].setdefault(label, []).append(ms)
-    for label, fn in fns.items():
-        for name, (o, d, t_max, any_hit) in batches.items():
-            report["batches"][name]["host_us"][label] = bs.host_us(
-                lambda: fn(o, d, t_max, any_hit), args.n)
-
-    report["profiler_us"] = {}
-    for label, fn in fns.items():
-        for name in PROFILED:
-            o, d, t_max, any_hit = batches[name]
-            prof = bs.profiler_kernel_us(lambda: fn(o, d, t_max, any_hit),
-                                         "bvh4_traverse_kernel")
-            report["profiler_us"][f"{label} {name}"] = prof
-    report["summary"] = {}
-    print(f"\n{'batch':22s}" + "".join(f"{lb:>22s}" for lb in fns) + "   bound", flush=True)
-    for name, row in report["batches"].items():
+              f"{row['warp_nodes']:.2f} tris {row['warp_tris']:.2f}  bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']}; {row['work']})  ties "
+              f"{row['ties']}", flush=True)
+    print(f"\n{'batch':24s}" + "".join(f"{lb:>22s}" for lb in fns) + "   bound", flush=True)
+    for name, row in rows.items():
         cells = "".join(f"{min(v):10.4f}/{max(v):<10.4f} " for v in row["device_ms"].values())
-        print(f"{name:22s}{cells}  {row['bound_ms']:.6f}", flush=True)
+        print(f"{name:24s}{cells}  {row['bound_ms']:.6f}", flush=True)
+    summary = {}
     for label in fns:
-        mean = lambda name: sum(report["batches"][name]["device_ms"][label]) / 2
-        wave_ms = sum(mean(n) for n in wave_names)
-        report["summary"][label] = {
-            "wave_ms": wave_ms,
-            "wave_host_us": sum(report["batches"][n]["host_us"][label] for n in wave_names),
-            "probe_ms": {n: mean(n) for n in batches if n not in wave_names}}
-        print(f"{label}: traversal device ms per wave {wave_ms:.4f}, host us per wave "
-              f"{report['summary'][label]['wave_host_us']:.1f}; phase-3 batches "
-              f"{report['summary'][label]['probe_ms']}", flush=True)
-    report["wave_bound_ms"] = sum(report["batches"][n]["bound_ms"] for n in wave_names)
-    print(f"bound per wave {report['wave_bound_ms']:.6f} ms", flush=True)
-    for key, val in report["profiler_us"].items():
-        print(f"profiler {key}: {val}", flush=True)
-
-    if args.others:
-        report["others"] = {}
-        for backend in ("cuda_bvh4", "cuda_binary", "cuda_binary_deep", "cuda_bvh8"):
-            isect = dispatch.make_intersectors(sc, dbvh, dev, backend=backend)
-            rows = {}
-            for name in [n for n in batches if n.startswith("probe ")]:
-                o, d, t_max, any_hit = batches[name]
-                call = lambda: isect.fn(*isect.tables, o, d, t_max, any_hit)
-                rows[name] = {"device_ms": bs.device_ms(call, args.n),
-                              "host_us": bs.host_us(call, args.n),
-                              "single_launch_ms": bs.median_ms(call)}
-                print(f"{backend:17s} {name:20s} device {rows[name]['device_ms']:.4f} ms, "
-                      f"host {rows[name]['host_us']:.1f} us, one launch between events "
-                      f"{rows[name]['single_launch_ms']:.4f} ms", flush=True)
-            report["others"][backend] = rows
+        summary[label] = {
+            "wave_ms": sum(bs.mean_ms(rows[n], label) for n in wave_names),
+            "wave_host_us": sum(rows[n]["host_us"][label] for n in wave_names),
+            "probe_ms": {n: bs.mean_ms(rows[n], label) for n in rows if n not in wave_names},
+            "profiler_us": {n: rows[n]["profiler_us"][label] for n in bs.PROFILED}}
+        print(f"{label}: traversal device ms per wave {summary[label]['wave_ms']:.4f}, host us "
+              f"per wave {summary[label]['wave_host_us']:.1f}; phase-3 batches "
+              f"{summary[label]['probe_ms']}; profiler us {summary[label]['profiler_us']}",
+              flush=True)
+    wave_bound = sum(rows[n]["bound_ms"] for n in wave_names)
+    print(f"bound per wave {wave_bound:.6f} ms", flush=True)
 
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump(report, f, indent=1)
-    print(json.dumps({"bvh4_ab": report["summary"], "wave_bound_ms": report["wave_bound_ms"],
-                      "device": report["device"], "name_power_limit": smi}))
+            json.dump({"device": torch.cuda.get_device_name(0), "name_power_limit": smi,
+                       "ptxas": ptxas, "batches": rows, "summary": summary,
+                       "wave_bound_ms": wave_bound}, f, indent=1)
+    print(json.dumps({"bvh4_ab": summary, "wave_bound_ms": wave_bound,
+                      "device": torch.cuda.get_device_name(0), "name_power_limit": smi}))
     return 0
 
 

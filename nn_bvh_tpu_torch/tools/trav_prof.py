@@ -18,14 +18,14 @@ RandomState(1) draws of the JAX script:
   that backend.
 
 "Sorted" is `make_intersectors(..., sort=True)`: sort -> traverse -> unsort
-around each call. Each row and the sort are device time per call
+around each call. An unsorted row is device time per call
 (`bench_scene.device_ms`: 50 back-to-back calls between two CUDA events, the
-stream held busy while the host enqueues them), beside the host's time per
-call (`bench_scene.host_us`). A call that waits for the device (the sort)
-cannot be held that way: its row is torch.profiler's device time of the
-kernels it runs (`bench_scene.profiler_device_us`), marked so. The wave is
-CUDA events around 3 waves after one warm-up wave, per wave (host-bound:
-the events wait on the host).
+stream held busy while the host enqueues them). The sort waits for the
+device, so the stream cannot be held around it: the sorted rows and the sort
+alone are torch.profiler's device time of every kernel and copy they run
+(`bench_scene.profiler_us`). Each row has the host's time per call beside it
+(`bench_scene.host_us`). The wave is CUDA events around 3 waves after one
+warm-up wave, per wave (host-bound: the events wait on the host).
 It needs a CUDA card and exits 1 without one. The last line of standard
 output is one JSON object with every number, the card's name and its power
 limit.
@@ -43,8 +43,7 @@ import torch
 
 from ..accel import dispatch
 from ..wavefront import camera as camera_mod, film as film_mod, integrator
-from .bench_scene import (HostSync, bench_config, build_bench_scene, device_ms, host_us,
-                          profiler_device_us)
+from .bench_scene import bench_config, build_bench_scene, device_ms, host_us, profiler_us
 
 
 def ray_batches(sc, cam, closest, device):
@@ -98,18 +97,18 @@ def profile_backend(name: str, sc, dbvh, cam, device) -> dict:
     }
     out = {}
     print(f"backend {name} -> {backend}; bounce lanes live {live:.4f}", flush=True)
-    def timed(row, call):
-        try:
+    def timed(row, call, sorts):
+        if sorts:  # the sort waits for the device
+            out[row], how = profiler_us(call) / 1e3, "profiler: kernels and copies"
+        else:
             out[row], how = device_ms(call), "device"
-        except HostSync:
-            out[row], how = profiler_device_us(call) / 1e3, "profiler: kernels, the call syncs"
         out[f"{row} host us"] = host_us(call)
         print(f"{row:30s}{out[row]:9.4f} ms {R / out[row] / 1e3:9.1f} Mray/s ({how}), "
               f"host {out[f'{row} host us']:8.1f} us/call", flush=True)
 
     for row, (fn, batch) in rows.items():
         args = batches[batch]
-        timed(row, lambda: fn(*args))
+        timed(row, lambda: fn(*args), fn.__self__ is srt)
 
     blo, bext = srt.sort_bounds
     o_b, d_b, t_b = batches["bounce"]
@@ -118,7 +117,7 @@ def profile_backend(name: str, sc, dbvh, cam, device) -> dict:
         order = torch.argsort(dispatch.ray_sort_key(o_b, d_b, blo, bext, t_b), stable=True)
         return torch.empty_like(o_b).index_copy_(0, order, o_b[order])
 
-    timed("sort+unsort alone", sort_only)
+    timed("sort+unsort alone", sort_only, True)
 
     cfg, sampler_cfg = bench_config()
     wave = integrator.make_wave_fn(sc, dbvh, cam, sampler_cfg, cfg, isect=uns)

@@ -1,7 +1,9 @@
 """The measurement helpers of nn_bvh_tpu_torch/tools/bench_scene.py on the
 CPU: the traversal batches of one bench wave (`wave_batches`), the per-warp
-work of a batch (`warp_work`), the kernels' hit contract (`check_hits`), and
-the timing helpers, which need a card and must raise without one.
+work of a batch (`warp_work`), the kernels' hit contract (`check_hits`), a
+call's bound (`traversal_bound`) with the table records the plain walks
+count, the ptxas report helpers of nn_bvh_tpu_torch/kernels.py, and the
+timing helpers, which need a card and must raise without one.
 
 The wave runs on a reduced bench scene (6 coarse spheres, 1,348 triangles) at
 32x24 through the plain traversal: the batches must come in the integrator's
@@ -13,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from nn_bvh_tpu_torch import accel
+from nn_bvh_tpu_torch import accel, kernels
 from nn_bvh_tpu_torch.accel import dispatch, traverse
 from nn_bvh_tpu_torch.core import samplers
 from nn_bvh_tpu_torch.geometry import scene, transform
@@ -163,13 +165,68 @@ def test_check_hits_contract():
         bs.check_hits(~occ, occ, t_max, True, "any")
 
 
-@pytest.mark.parametrize("fn", ["device_ms", "host_us", "profiler_kernel_us"])
+@pytest.mark.parametrize("fn", ["device_ms", "host_us", "profiler_us"])
 def test_timing_raises_without_card(monkeypatch, fn):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = []
     with pytest.raises(RuntimeError, match="CUDA card"):
-        if fn == "profiler_kernel_us":
-            bs.profiler_kernel_us(lambda: calls.append(1), "bvh4_traverse_kernel")
-        else:
-            getattr(bs, fn)(lambda: calls.append(1))
+        getattr(bs, fn)(lambda: calls.append(1))
     assert not calls  # nothing was timed on the host instead
+
+
+def test_traversal_bound_charges_records_read():
+    # 3 lanes, one dead; 2 node records of 128 bytes and 5 triangles read
+    counts = {"slab": torch.tensor([8, 4, 0]), "tri": torch.tensor([3, 2, 0]),
+              "node_records": 2, "tri_records": 5}
+    nodes = torch.zeros((10, 4, 8))
+    t_max = torch.tensor([1e30, 1e30, -1.0])
+    ms, by, work = bs.traversal_bound(counts, t_max, False, nodes)
+    assert work["ray_bytes"] == 2 * 24 + 3 * 4 + 3 * 16
+    assert work["table_bytes"] == 2 * 128 + 5 * bs.TRI_BYTES
+    assert work["flops"] == 12 * bs.FLOPS_SLAB + 5 * bs.FLOPS_TRI
+    assert by == "bytes"
+    assert ms == pytest.approx((work["ray_bytes"] + work["table_bytes"]) / bs.PEAK_BYTES * 1e3)
+    # any-hit: a lane with t_max = 0 is live, only prim is written
+    _, _, work = bs.traversal_bound(counts, torch.tensor([0.0, 1e30, -1.0]), True, nodes)
+    assert work["ray_bytes"] == 2 * 24 + 3 * 4 + 3 * 4
+
+
+@pytest.mark.parametrize("backend,width", [("plain", 4), ("plain_binary", 1),
+                                           ("plain_bvh8", 8)])
+def test_plain_walk_counts_records_read(small_bench, batches, backend, width):
+    """A single ray visits a node and tests a triangle at most once, so its
+    distinct records equal its tests; a batch reads at most every record and
+    no more than its tests; a batch of dead lanes reads nothing."""
+    sc, dbvh, _ = small_bench
+    isect = dispatch.make_intersectors(sc, dbvh, "cpu", backend=backend)
+    nodes, tris = isect.tables
+    o, d, t_max, any_hit = batches[2]
+    hit_lane = int(torch.nonzero(t_max > 0)[0])
+    for any_hit in (False, True):
+        counts = {}
+        isect.fn(nodes, tris, o[hit_lane:hit_lane + 1], d[hit_lane:hit_lane + 1],
+                 t_max[hit_lane:hit_lane + 1], any_hit, counts=counts)
+        assert counts["node_records"] == int(counts["slab"].sum()) // width > 0
+        assert counts["tri_records"] == int(counts["tri"].sum())
+        counts = {}
+        isect.fn(nodes, tris, o, d, t_max, any_hit, counts=counts)
+        assert 0 < counts["node_records"] <= min(nodes.shape[0],
+                                                 int(counts["slab"].sum()) // width)
+        assert 0 < counts["tri_records"] <= min(tris.shape[0], int(counts["tri"].sum()))
+        counts = {}
+        isect.fn(nodes, tris, o, d, torch.full_like(t_max, -1.0), any_hit, counts=counts)
+        assert counts["node_records"] == counts["tri_records"] == 0
+
+
+def test_ptxas_report_helpers():
+    log = ("ptxas info    : Compiling entry function '_Z6kernelv' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z6kernelv\n"
+           "    256 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 55 registers, used 0 barriers, 256 bytes cumulative stack size\n")
+    assert len(kernels.ptxas_lines(log)) == 3
+    assert kernels.spill_bytes(log) == 0
+    spilled = log.replace("0 bytes spill stores, 0 bytes spill loads",
+                          "8 bytes spill stores, 12 bytes spill loads")
+    assert kernels.spill_bytes(log + spilled) == 20
+    with pytest.raises(ValueError, match="no spill lines"):
+        kernels.spill_bytes("nvcc: nothing to report")
