@@ -65,17 +65,21 @@ points, once per traversal backend, and checks it:
    default cuda_bvh4 intersectors, recorded as trace_wave hands them over,
    in its lane order, as bench_scene.wave_batches does; launch counts reset
    just before and read just after: 9 launches = 9 traversal calls),
-   through bench_scene.time_traversals: for each, its live lanes, the plain
-   walk's work per lane and per warp (bench_scene.warp_work), the kernel's
-   device time (two readings) and host time, the plain version's time, the
-   bound by phase 9's rule, and phase 3's contract with its tie count; then
-   their sum, the "traversal device ms per wave", and torch.profiler's
+   through bench_scene.time_traversals for each of the four per-ray kernels
+   (bvh4_traverse against plain, binary_traverse and binary_traverse_deep
+   against plain_binary, bvh8_traverse against plain_bvh8): for each batch,
+   its live lanes, the plain walk's work per lane and per warp
+   (bench_scene.warp_work), the kernel's device time (two readings) and
+   host time, the plain version's time, the bound by phase 9's rule, and
+   phase 3's contract with its tie count; then for each kernel the sum,
+   its "traversal device ms per wave" with its bound, and torch.profiler's
    device time of the kernel on two batches beside device_ms.
 
 Any failure raises (exit code != 0). The last two lines of standard output
 are a JSON record of the kernels and {"ok": true, "device": {...}}.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -265,25 +269,25 @@ def phase_same_seed(torch, sc, dbvh, cam, dev):
 
 
 def phase_deep_tree(torch, dev, R):
-    from nn_bvh_tpu_torch.accel import binary, binary_kernel, traverse
+    from nn_bvh_tpu_torch.accel import binary, binary_kernel, bvh4, traverse
     from nn_bvh_tpu_torch.tools import bench_scene
 
     levels = 100
     tri, db = bench_scene.build_deep_tree(levels)
     try:
-        binary.pack_binary_cuda(db.node_lo, db.node_hi, db.node_meta, 64)
+        binary.pack_binary_pairs(db.node_lo, db.node_hi, db.node_meta, 64)
         check(False, "the 64-entry packer accepted a tree of depth 100")
     except ValueError:
         pass
-    nodes = torch.as_tensor(binary.pack_binary_cuda(db.node_lo, db.node_hi, db.node_meta, 128),
+    nodes = torch.as_tensor(binary.pack_binary_pairs(db.node_lo, db.node_hi, db.node_meta, 128),
                             device=dev)
-    tris = torch.as_tensor(tri, device=dev)
+    tris = torch.as_tensor(bvh4.pack_tris_cuda(tri), device=dev)
     o, d, t_max = (torch.as_tensor(x, device=dev)
                    for x in bench_scene.deep_tree_rays(levels, R))
     kern = lambda *a: binary_kernel.traverse(nodes, tris, *a, stack=128)
     pl = lambda *a: traverse.traverse_binary_plain(nodes, tris, *a, stack_depth=128)
     ties, err, rate = compare(torch, "deep tree", kern, pl, o, d, t_max)
-    brute = traverse.intersect_brute(tris, o, d, t_max)
+    brute = traverse.intersect_brute(torch.as_tensor(tri, device=dev), o, d, t_max)
     hk = kern(o, d, t_max, False)
     check(bool(torch.equal(hk.prim, brute.prim)), "deep tree: kernel differs from brute force")
     print(f"phase 7: depth-{binary.tree_depth(db.node_meta)} tree, {R} rays: contract met "
@@ -302,8 +306,10 @@ def bound_ms(torch, p_isect, o, d, t_max):
 
 
 def phase_wave_batches(torch, sc, dbvh, cam, dev):
-    """Phase 13: the nine traversal batches of one bench wave through
-    cuda_bvh4, each held against the plain version and timed on the card."""
+    """Phase 13: the nine traversal batches of one bench wave, recorded
+    through cuda_bvh4, then every per-ray kernel held against its plain
+    version and timed on them, one family of tables at a time -> {kernel:
+    totals over the wave}."""
     from nn_bvh_tpu_torch.accel import dispatch
     from nn_bvh_tpu_torch.tools import bench_scene as bs
 
@@ -315,34 +321,43 @@ def phase_wave_batches(torch, sc, dbvh, cam, dev):
     check(rec.backend == "cuda_bvh4" and counts == {"bvh4_traverse": rec.n_calls}
           and len(rec.batches) == rec.n_calls == 2 * DEPTH + 1,
           f"wave batches: {len(rec.batches)} batches, launches {counts}")
-    p_isect = dispatch.make_intersectors(sc, dbvh, dev, backend="plain")
-    names = bs.wave_batch_names(rec.batches)
-    rows = bs.time_traversals({"bvh4_traverse": lambda *a: rec.fn(*rec.tables, *a)},
-                              dict(zip(names, rec.batches)), p_isect)
-    total = {"device_ms": 0.0, "host_us": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "ties": 0}
-    for name, row in rows.items():
-        ms = bs.mean_ms(row, "bvh4_traverse")
-        for key, val in (("device_ms", ms), ("host_us", row["host_us"]["bvh4_traverse"]),
-                         ("bound_ms", row["bound_ms"]), ("plain_ms", row["plain_ms"]),
-                         ("ties", row["ties"]["bvh4_traverse"])):
-            total[key] += val
-        print(f"phase 13: {name:18s} live {row['live']:6d}; nodes/lane {row['nodes_mean']:.2f} "
-              f"p99 {row['nodes_p99']:.0f} max {row['nodes_max']}; tris/lane "
-              f"{row['tris_mean']:.2f} max {row['tris_max']}; warp max nodes "
-              f"{row['warp_nodes']:.1f} tris {row['warp_tris']:.1f}; kernel "
-              f"{'/'.join(f'{v:.4f}' for v in row['device_ms']['bvh4_traverse'])} ms device, "
-              f"{row['host_us']['bvh4_traverse']:.1f} us host; plain {row['plain_ms']:.1f} ms; "
-              f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}; {row['work']}); contract "
-              f"met, {row['ties']['bvh4_traverse']} ties", flush=True)
-    print(f"phase 13: traversal device ms per wave {total['device_ms']:.4f} (host "
-          f"{total['host_us']:.1f} us, bound {total['bound_ms']:.6f} ms, plain "
-          f"{total['plain_ms']:.1f} ms), {total['ties']} tie lanes")
-    for name in bs.PROFILED:
-        prof = rows[name]["profiler_us"]["bvh4_traverse"]
-        print(f"phase 13: profiler on {name}: "
-              + ("no device time recorded" if prof == 0 else f"{prof:.2f} us per call")
-              + f"; device_ms {bs.mean_ms(rows[name], 'bvh4_traverse') * 1e3:.2f} us per call")
-    return total
+    batches = dict(zip(bs.wave_batch_names(rec.batches), rec.batches))
+    families = {}  # plain twin -> {kernel name: fn(o, d, t_max, any_hit)}
+    for name, backend, plain, *_ in KERNELS:
+        isect = dispatch.make_intersectors(sc, dbvh, dev, backend=backend)
+        families.setdefault(plain, {})[name] = functools.partial(isect.fn, *isect.tables)
+    totals = {}
+    for plain, fns in families.items():
+        p_isect = dispatch.make_intersectors(sc, dbvh, dev, backend=plain)
+        rows = bs.time_traversals(fns, batches, p_isect)
+        for kname in fns:
+            total = {"device_ms": 0.0, "host_us": 0.0, "bound_ms": 0.0, "plain_ms": 0.0,
+                     "ties": 0}
+            for name, row in rows.items():
+                ms = bs.mean_ms(row, kname)
+                for key, val in (("device_ms", ms), ("host_us", row["host_us"][kname]),
+                                 ("bound_ms", row["bound_ms"]), ("plain_ms", row["plain_ms"]),
+                                 ("ties", row["ties"][kname])):
+                    total[key] += val
+                print(f"phase 13: {kname} {name:18s} live {row['live']:6d}; nodes/lane "
+                      f"{row['nodes_mean']:.2f} p99 {row['nodes_p99']:.0f} max "
+                      f"{row['nodes_max']}; tris/lane {row['tris_mean']:.2f} max "
+                      f"{row['tris_max']}; warp max nodes {row['warp_nodes']:.1f} tris "
+                      f"{row['warp_tris']:.1f}; kernel "
+                      f"{'/'.join(f'{v:.4f}' for v in row['device_ms'][kname])} ms device, "
+                      f"{row['host_us'][kname]:.1f} us host; {plain} {row['plain_ms']:.1f} ms; "
+                      f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}; {row['work']}); "
+                      f"contract met, {row['ties'][kname]} ties", flush=True)
+            print(f"phase 13: {kname}: traversal device ms per wave {total['device_ms']:.4f}, "
+                  f"bound {total['bound_ms']:.6f} ms (host {total['host_us']:.1f} us, {plain} "
+                  f"{total['plain_ms']:.1f} ms), {total['ties']} tie lanes", flush=True)
+            for name in bs.PROFILED:
+                prof = rows[name]["profiler_us"][kname]
+                print(f"phase 13: {kname} profiler on {name}: "
+                      + ("no device time recorded" if prof == 0 else f"{prof:.2f} us per call")
+                      + f"; device_ms {bs.mean_ms(rows[name], kname) * 1e3:.2f} us per call")
+            totals[kname] = total
+    return totals
 
 
 def phase_lab_main_path(torch):
@@ -405,8 +420,8 @@ def phase_lab_variants(torch, sc, dbvh, cam, dev):
 
     rays = kernel_lab.ray_classes(sc, dbvh, cam, LAB_R, dev)
     isect = dispatch.make_intersectors(sc, dbvh, dev, backend="cuda_binary")
-    nodes, tris = isect.tables
-    table_bytes = sum(t.numel() * t.element_size() for t in isect.tables)
+    nodes, tris = kernel_lab.lab_tables(sc, dbvh, dev)
+    table_bytes = nodes.numel() * nodes.element_size() + tris.numel() * tris.element_size()
     kern = {"lab_traverse": kernel_lab.lab_traverse, "brless_traverse": kernel_lab.brless_traverse}
     plain = {"lab_traverse": kernel_lab.lab_traverse_plain,
              "brless_traverse": kernel_lab.brless_traverse_plain}

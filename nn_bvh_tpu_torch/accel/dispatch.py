@@ -3,8 +3,9 @@ the ray re-sort key and sorted intersector
 (nn_bvh_tpu/accel/pallas_traverse.py:431-481).
 
 `make_intersectors` packs one backend's tables once on the host and uploads
-them to the device: its node table, and the triangles as (N, 3, 3)
-vertices, or for `cuda_bvh4` as 16-byte records (`bvh4.pack_tris_cuda`).
+them to the device: its node table, and the triangles as 16-byte records
+(`bvh4.pack_tris_cuda`) for `cuda_bvh4` and both binary layouts (kernel and
+plain twin alike), as (N, 3, 3) vertices for the others.
 Every traversal backend of the JAX package has a hand-written CUDA kernel
 here, and each kernel a plain torch version:
 
@@ -98,9 +99,11 @@ class Intersectors:
 
 
 def _tri_table(backend: str, scene) -> np.ndarray:
-    """cuda_bvh4 reads 16-byte records, every other backend (N, 3, 3)."""
+    """cuda_bvh4 and the binary layouts read 16-byte records, the others
+    (N, 3, 3)."""
     tri_p = np.ascontiguousarray(host(scene.tri_p), dtype=np.float32)
-    return bvh4.pack_tris_cuda(tri_p) if backend == "cuda_bvh4" else tri_p
+    records = backend == "cuda_bvh4" or _BACKENDS[backend][0].startswith("binary")
+    return bvh4.pack_tris_cuda(tri_p) if records else tri_p
 
 
 def _node_table(layout: str, dbvh) -> np.ndarray:
@@ -110,7 +113,7 @@ def _node_table(layout: str, dbvh) -> np.ndarray:
         return bvh4.pack_bvh4_cuda(*bvh4.collapse_bvh4(lo, hi, meta))
     if layout == "bvh8":
         return bvh8.pack_bvh8_cuda(*bvh8.collapse_bvh8(lo, hi, meta))
-    return binary.pack_binary_cuda(lo, hi, meta, 128 if layout == "binary_deep" else 64)
+    return binary.pack_binary_pairs(lo, hi, meta, 128 if layout == "binary_deep" else 64)
 
 
 def default_backend(device: torch.device) -> str:

@@ -9,7 +9,8 @@ references the kernels are checked against on the card.
 
 - `traverse_bvh4_plain`: csrc/bvh4_traverse.cu (pallas_bvh4._traverse_bvh4);
 - `traverse_binary_plain`: csrc/binary_traverse.cu, stack 64
-  (pallas_traverse._traverse_packed) or 128 (hbm_traverse._traverse_hbm);
+  (pallas_traverse._traverse_packed) or 128 (hbm_traverse._traverse_hbm),
+  over the kernel's pair records (binary.pack_binary_pairs);
 - `traverse_bvh8_plain`: csrc/bvh8_traverse.cu (pallas_bvh8._traverse_bvh8).
 
 Semantics (those of the TPU kernels):
@@ -22,8 +23,10 @@ Semantics (those of the TPU kernels):
 - child order, per ray: BVH4 pushes hit children far to near by entry t
   (a stable descending sort, so on equal keys the higher slot is visited
   first); BVH8 visits them near to far, stable (the lower slot first on
-  equal keys); the binary walk descends the near child by this ray's
-  direction sign on the split axis (the XLA anchor's dirIsNeg order).
+  equal keys); the binary walk visits the nearer child by entry t first,
+  the right child on equal keys (BVH4's rule for two children). The TPU
+  kernels order by the packet's direction sign; the hits are the same but
+  on exact t ties.
 
 `counts`, a dict, receives per-ray int64 counts of box (slab) tests under
 "slab" and of triangle tests under "tri", and how many distinct node records
@@ -40,7 +43,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import bvh4, bvh8
+from . import binary, bvh4, bvh8
 
 TINY = 1e-20       # inverse-direction guard
 
@@ -255,16 +258,22 @@ def traverse_bvh8_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor
 def traverse_binary_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor,
                           d: torch.Tensor, t_max: torch.Tensor, any_hit: bool,
                           stack_depth: int = 64, counts: dict | None = None):
-    """nodes (Nn,8) f32 (binary.pack_binary_cuda), tris (N,3,3) f32, o/d
-    (R,3) f32, t_max (R,) f32; a stack of `stack_depth` entries per ray.
+    """nodes (1+Ni,16) f32 pair records (binary.pack_binary_pairs), tris
+    (N,3,3) f32 or (N,3,4) records (bvh4.pack_tris_cuda), o/d (R,3) f32,
+    t_max (R,) f32; a stack of `stack_depth` entries per ray. The walk starts
+    at the header's entry; a record's two children are slab-tested and the
+    hit ones pushed far to near by entry t (child 1 first on equal keys).
     Closest-hit -> Hit; any-hit -> (R,) bool occluded."""
     R = o.shape[0]
-    lo_all = nodes[:, 0:3]
-    hi_all = nodes[:, 3:6]
-    meta_all = nodes[:, 6:8].contiguous().view(torch.int32)  # offset, count+32*axis
+    lo = torch.stack([nodes[:, 0:3], nodes[:, 6:9]], 1)   # (Nr, 2, 3)
+    hi = torch.stack([nodes[:, 3:6], nodes[:, 9:12]], 1)
+    entries = nodes[:, 12:14].contiguous().view(torch.int32)  # (Nr, 2)
+    start = int(entries[0, 0])
     inv = safe_inv(d)
-    neg = inv < 0.0
     t_best, prim, b1, b2, stack, sp = _init_lanes(t_max, any_hit, stack_depth)
+    stack[:, 0] = start
+    if start == binary.NO_ENTRY:
+        sp.fill_(-1)
     n_slab = torch.zeros(R, dtype=torch.int64, device=o.device)
     n_tri = torch.zeros(R, dtype=torch.int64, device=o.device)
     seen_node = torch.zeros(nodes.shape[0], dtype=torch.bool, device=o.device)
@@ -275,32 +284,40 @@ def traverse_binary_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tens
         if idx.numel() == 0:
             break
         spi = sp[idx]
-        node = stack[idx, spi].long()
+        entry = stack[idx, spi]
         spi = spi - 1
-        ok, _ = _slab(lo_all[node], hi_all[node], o[idx], inv[idx], t_best[idx])
-        n_slab[idx] += 1
-        seen_node[node] = True
-        meta = meta_all[node]
-        off, count, axis = meta[:, 0], meta[:, 1] & 31, meta[:, 1] >> 5
 
-        # interior hit: push the far child, then the near one (popped next)
-        inner = ok & (count == 0)
+        # interior: slab-test both children, push the hit ones far to near
+        inner = entry >= 0
         ii = idx[inner]
         if ii.numel():
-            nd, of = node[inner].to(torch.int32), off[inner]
-            n = neg[ii].gather(1, axis[inner].long()[:, None])[:, 0]
+            e = entry[inner].long()
+            ok, tn = _slab(lo[e], hi[e], o[ii][:, None, :], inv[ii][:, None, :],
+                           t_best[ii][:, None])
+            key = torch.clamp(tn, min=0.0)
+            first0 = key[:, 0] < key[:, 1]
+            ent = entries[e]
+            near = torch.where(first0, ent[:, 0], ent[:, 1])
+            far = torch.where(first0, ent[:, 1], ent[:, 0])
+            both = ok[:, 0] & ok[:, 1]
+            one = torch.where(ok[:, 0], ent[:, 0], ent[:, 1])
             base = spi[inner]
-            stack[ii, base + 1] = torch.where(n, nd + 1, of)
-            stack[ii, base + 2] = torch.where(n, of, nd + 1)
-            spi[inner] = base + 2
+            stack[ii, base + 1] = torch.where(both, far, one)
+            stack[ii, base + 2] = near
+            spi[inner] = base + ok.sum(1)
+            n_slab[ii] += 2
+            seen_node[e] = True
 
-        leaf = ok & (count > 0)
+        # leaf: test up to 8 triangles
+        leaf = ~inner
         li = idx[leaf]
         if li.numel():
-            got, tested = _leaf(li, off[leaf].long(), count[leaf].long(), tris, o, d,
-                                t_best, prim, b1, b2, any_hit)
+            u = -entry[leaf].long() - 1
+            off = u >> 4
+            got, tested = _leaf(li, off, (u & 15) + 1, tris, o, d, t_best, prim, b1, b2,
+                                any_hit)
             n_tri[li] += tested
-            _mark_tris(seen_tri, off[leaf].long(), tested)
+            _mark_tris(seen_tri, off, tested)
             if any_hit:
                 spi[leaf] = torch.where(got, -1, spi[leaf])
         sp[idx] = spi

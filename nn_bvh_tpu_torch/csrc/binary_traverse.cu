@@ -12,74 +12,96 @@
 //
 // The TPU kernels walk packets of rays with one shared scalar stack and
 // order a node's children by the packet's majority direction sign. Here every
-// thread walks its own ray with its own stack in local memory (128 threads
-// per block) and takes the near child by this ray's direction sign on the
-// node's split axis, as the XLA anchor (nn_bvh_tpu/accel/traverse.py:109-111)
-// and pbrt's dirIsNeg do. The hits are the same.
+// thread walks its own ray, 128 threads per block, and visits the nearer
+// child by this ray's entry t first. The hits are the same but on exact t
+// ties.
 //
-// What bounds it on this card: a chain of dependent global loads, one
-// 32-byte node record per pop, and warp divergence; a binary tree pops
-// about twice as many nodes as the BVH4 one for the same ray. The bench
-// tables (0.57 MB of nodes, 1.9 MB of triangles) stay in L2. This simple
-// design does nothing about that yet.
+// What bounds it on this card: latency, not bytes or operations. A bench
+// wave's nine calls could take 0.0124 ms at the memory rate or float32 peak
+// and take 0.51 ms, 41 times that: each node step is a chain of dependent
+// loads (record -> two slab tests -> next entry), a warp runs as long as
+// its longest lane, and a binary tree takes about twice the node steps of
+// the BVH4 one for the same ray. The design, step by step, each measured
+// against the one before by device time on the nine batches of a bench
+// wave (tools/bvh4_ab.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+// (a) 16-byte triangle records (accel/bvh4.py::pack_tris_cuda, as
+//     bvh4_traverse.cu reads them): three float4 loads a triangle, the next
+//     one's issued before the current one is tested, no edge subtractions;
+//     -10%;
+// (b) child boxes stored in the parent (Aila and Laine, HPG 2009): one
+//     64-byte record per interior node holds both children's boxes and
+//     entries, so a step loads one record and makes two slab tests, keeps
+//     the nearer hit child in a register and pushes the farther one; a child
+//     that misses is never pushed or fetched; -15%;
+// (c) the speculative while-while walk with postponed leaves of
+//     bvh4_traverse.cu (trav::walk in traverse_common.cuh); -30%, -47% in
+//     all against the per-ray transcription of the TPU kernel.
+// Measured and left out: persistent warps taking 32 rays at a time from a
+// global counter (+11% on (c)), and on top of them the top 255 records in
+// shared memory (+4% more).
 //
 // Semantics match the plain version
-// (nn_bvh_tpu_torch/accel/traverse.py::traverse_binary_plain); the shared
-// rules are in traverse_common.cuh. Particular to this kernel:
-// - a popped node is slab-tested against its own box; a missed node is
-//   dropped, a hit interior node pushes its far child, then its near child;
-// - node record (accel/binary.py::pack_binary_cuda): 8 floats
-//   [lo.x lo.y lo.z hi.x | hi.y hi.z offset count+32*axis], the last two as
-//   int32 bits; interior: children self+1 and offset; leaf: count triangles
-//   from offset.
+// (nn_bvh_tpu_torch/accel/traverse.py::traverse_binary_plain); the slab test,
+// triangle test and miss / any-hit rules are in traverse_common.cuh.
+// Particular to this kernel:
+// - node records (accel/binary.py::pack_binary_pairs): 16 floats
+//   [lo0.xyz hi0.x | hi0.yz lo1.xy | lo1.z hi1.xyz | entry0 entry1 0 0],
+//   read as four float4; an entry >= 1 is a record, < 0 a leaf
+//   -(1 + offset*16 + count-1);
+// - record 0 is a header: the walk starts at its entry0 (the root's record,
+//   the leaf of a one-leaf tree, or kEmpty for an empty tree), without a
+//   test of the root's box;
+// - both children hit: the one of smaller max(entry t, 0) is visited first,
+//   child 1 on equal keys (bvh4_traverse.cu's stable sort for two children);
+// - triangles: (N, 3, 4) floats, [v0, 0 | e1, 0 | e2, 0].
 
 #include "traverse_common.cuh"
 
 namespace {
 
+constexpr int kBlock = 128;
+
 template <int kStack, bool kAnyHit>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kBlock)
 binary_traverse_kernel(const float4* __restrict__ nodes,
-                       const float* __restrict__ tris,
+                       const float* __restrict__ tris_f,
                        const float* __restrict__ o, const float* __restrict__ d,
                        const float* __restrict__ t_max, int n_rays,
                        float* __restrict__ t_out, int* __restrict__ prim_out,
                        float* __restrict__ b1_out, float* __restrict__ b2_out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-  float t_best = t_max[r];
+  const float4* tris = reinterpret_cast<const float4*>(tris_f);
+  const int r = blockIdx.x * kBlock + threadIdx.x;
+  // every thread of a warp takes part in its votes: none returns early
+  const bool in = r < n_rays;
+  float t_best = in ? t_max[r] : -1.f;
   int prim = (kAnyHit && t_best < 0.f) ? 0 : -1;
   float b1 = 0.f, b2 = 0.f;
-  const bool live = kAnyHit ? (t_best >= 0.f) : (t_best > 0.f);
+  const bool live = in && (kAnyHit ? (t_best >= 0.f) : (t_best > 0.f));
+  trav::Ray ray = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (live) ray = trav::load_ray(o, d, r);
+  const int start = __float_as_int(__ldg(nodes + 3).x);  // the header's entry0
 
-  if (live) {
-    const trav::Ray ray = trav::load_ray(o, d, r);
-    int stack[kStack];  // the packer checks depth < kStack - 1
-    int sp = 0;
-    stack[0] = 0;  // root
-    while (sp >= 0) {
-      const int node = stack[sp];
-      sp -= 1;
-      const float4 a = __ldg(nodes + 2 * (size_t)node);
-      const float4 b = __ldg(nodes + 2 * (size_t)node + 1);
-      float tn;
-      if (!trav::slab(ray, a.x, a.y, a.z, a.w, b.x, b.y, t_best, &tn)) continue;
-      const int off = __float_as_int(b.z);
-      const int count_axis = __float_as_int(b.w);
-      const int count = count_axis & 31;
-      if (count == 0) {
-        const int axis = count_axis >> 5;
-        const bool n = (axis == 0 ? ray.ix : (axis == 1 ? ray.iy : ray.iz)) < 0.f;
-        stack[++sp] = n ? node + 1 : off;  // far
-        stack[++sp] = n ? off : node + 1;  // near, popped next
-      } else {
-        const bool hit = trav::leaf_test<kAnyHit>(ray, tris, off, count, t_best,
-                                                  prim, b1, b2);
-        if (kAnyHit && hit) break;
-      }
+  // a node step: slab-test both children; go on with the nearer hit one and
+  // push the other
+  auto step = [&](int node, float tb, int* stack, int& sp) {
+    const float4* p = nodes + 4 * (size_t)node;
+    const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
+    const float2 e = __ldg(reinterpret_cast<const float2*>(p + 3));
+    float t0, t1;
+    const bool h0 = trav::slab(ray, a.x, a.y, a.z, a.w, b.x, b.y, tb, &t0);
+    const bool h1 = trav::slab(ray, b.z, b.w, c.x, c.y, c.z, c.w, tb, &t1);
+    const int e0 = __float_as_int(e.x), e1 = __float_as_int(e.y);
+    if (h0 && h1) {
+      const bool first0 = fmaxf(t0, 0.f) < fmaxf(t1, 0.f);
+      stack[++sp] = first0 ? e1 : e0;
+      return first0 ? e0 : e1;
     }
-  }
-  trav::store_hit<kAnyHit>(r, t_best, prim, b1, b2, t_out, prim_out, b1_out, b2_out);
+    if (h0 || h1) return h0 ? e0 : e1;
+    return sp >= 0 ? stack[sp--] : trav::kEmpty;
+  };
+  trav::walk<kAnyHit, kStack>(ray, tris, live ? start : trav::kEmpty, step, t_best, prim,
+                              b1, b2);
+  if (in) trav::store_hit<kAnyHit>(r, t_best, prim, b1, b2, t_out, prim_out, b1_out, b2_out);
 }
 
 }  // namespace

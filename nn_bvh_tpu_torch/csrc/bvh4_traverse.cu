@@ -24,7 +24,8 @@
 //     the next triangle's issued before the current one is tested, and the
 //     six subtractions are gone; -15%.
 // (b) while-while traversal with postponed leaves, speculative (Aila and
-//     Laine, HPG 2009): node steps run warp-wide while any lane is still
+//     Laine, HPG 2009; trav::walk in traverse_common.cuh, shared with
+//     binary_traverse.cu): node steps run warp-wide while any lane is still
 //     looking for a leaf; a lane that finds one parks it in a register and
 //     keeps visiting nodes until every lane has one (or is done), then the
 //     warp tests the parked leaves together. Node and leaf work no longer
@@ -56,13 +57,7 @@
 namespace {
 
 constexpr int kBlock = 128;
-constexpr int kStack = 64;          // accel/bvh4.py STACK_DEPTH (packer checks depth)
-constexpr int kEmpty = 0x7fffffff;  // no entry (leaf entries are < 0, nodes >= 0)
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ bool is_node(int e) {
-  return static_cast<unsigned>(e) < static_cast<unsigned>(kEmpty);
-}
+constexpr int kStack = 64;  // accel/bvh4.py STACK_DEPTH (packer checks depth)
 
 // Slab-tests the 4 children of wide node `node` and sorts the hit ones far to
 // near by entry t (a stable descending sort: on equal keys the lower child
@@ -114,42 +109,20 @@ bvh4_traverse_kernel(const float4* __restrict__ nodes,
   trav::Ray ray = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (live) ray = trav::load_ray(o, d, r);
 
-  int stack[kStack];
-  int sp = -1;
-  int next = live ? 0 : kEmpty;  // the entry this lane processes next (root first)
-  int leaf = kEmpty;             // the parked leaf
-  while (true) {
-    // node phase: runs while some lane has no parked leaf and a node to visit
-    while (true) {
-      if (leaf == kEmpty && next < 0) {
-        leaf = next;
-        next = sp >= 0 ? stack[sp--] : kEmpty;
-      }
-      if (!__any_sync(kFull, leaf == kEmpty && is_node(next))) break;
-      if (is_node(next)) {
-        int meta[4];
-        const int nhit = visit(nodes, next, ray, t_best, meta);
+  // a node step: push the hit children but the nearest, far to near; go on
+  // with the nearest
+  auto step = [&](int node, float tb, int* stack, int& sp) {
+    int meta[4];
+    const int nhit = visit(nodes, node, ray, tb, meta);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          if (c < nhit - 1) stack[++sp] = meta[c];
-        }
-        next = nhit == 0 ? (sp >= 0 ? stack[sp--] : kEmpty)
-             : nhit == 1 ? meta[0] : nhit == 2 ? meta[1] : nhit == 3 ? meta[2] : meta[3];
-      }
+    for (int c = 0; c < 3; ++c) {
+      if (c < nhit - 1) stack[++sp] = meta[c];
     }
-    // leaf phase: every lane with a parked leaf tests it
-    if (!__any_sync(kFull, leaf != kEmpty)) break;
-    if (leaf != kEmpty) {
-      const int u = -leaf - 1;
-      const bool hit = trav::leaf_test<kAnyHit>(ray, tris, u >> 4, (u & 15) + 1, t_best,
-                                                prim, b1, b2);
-      leaf = kEmpty;
-      if (kAnyHit && hit) {
-        next = kEmpty;
-        sp = -1;
-      }
-    }
-  }
+    return nhit == 0 ? (sp >= 0 ? stack[sp--] : trav::kEmpty)
+         : nhit == 1 ? meta[0] : nhit == 2 ? meta[1] : nhit == 3 ? meta[2] : meta[3];
+  };
+  trav::walk<kAnyHit, kStack>(ray, tris, live ? 0 : trav::kEmpty, step, t_best, prim, b1,
+                              b2);
   if (in) trav::store_hit<kAnyHit>(r, t_best, prim, b1, b2, t_out, prim_out, b1_out, b2_out);
 }
 

@@ -16,6 +16,8 @@
 //
 // Triangles: (N, 3, 3) floats, [vertex][axis], or the 16-byte records of
 // bvh4_traverse.cu; load_tri reads either, tri_test and leaf_test take both.
+// walk is the per-ray loop of the BVH4 and binary kernels over their own
+// node steps.
 
 #pragma once
 
@@ -158,6 +160,60 @@ __device__ __forceinline__ void store_hit(int r, float t_best, int prim,
     t_out[r] = prim >= 0 ? t_best : INFINITY;
     b1_out[r] = b1;
     b2_out[r] = b2;
+  }
+}
+
+// Entries of the BVH4 and binary walks: a node record >= 0, a leaf
+// -(1 + offset*16 + count-1), or kEmpty (none).
+constexpr int kEmpty = 0x7fffffff;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ bool is_node(int e) {
+  return static_cast<unsigned>(e) < static_cast<unsigned>(kEmpty);
+}
+
+// One ray's walk from entry `next` (kEmpty: none), speculative while-while
+// with postponed leaves (Aila and Laine, HPG 2009): node steps run
+// warp-wide while any lane still looks for a leaf; a lane that finds one
+// parks it and keeps visiting nodes until every lane has one (or is done);
+// then the warp tests the parked leaves together. Leaves are tested in the
+// order a plain stack walk would reach them; a lane may visit nodes with a
+// t_best its parked leaf has not reduced yet, which costs tests, never a
+// result, except that on an exact t tie another prim may win.
+//
+// step(node, t_best, stack, sp) visits a node: it pushes the hit children
+// but the nearest on the stack and returns the nearest (the next entry), or
+// pops one (kEmpty when the stack is empty). Every lane of the warp must
+// call walk together (a dead lane with next = kEmpty).
+template <bool kAnyHit, int kStack, typename Step>
+__device__ __forceinline__ void walk(const Ray& ray, const float4* __restrict__ tris,
+                                     int next, Step step, float& t_best, int& prim,
+                                     float& b1, float& b2) {
+  int stack[kStack];  // the packers check the depth against kStack
+  int sp = -1;
+  int leaf = kEmpty;  // the parked leaf
+  while (true) {
+    // node phase: runs while some lane has no parked leaf and a node to visit
+    while (true) {
+      if (leaf == kEmpty && next < 0) {
+        leaf = next;
+        next = sp >= 0 ? stack[sp--] : kEmpty;
+      }
+      if (!__any_sync(kFull, leaf == kEmpty && is_node(next))) break;
+      if (is_node(next)) next = step(next, t_best, stack, sp);
+    }
+    // leaf phase: every lane with a parked leaf tests it
+    if (!__any_sync(kFull, leaf != kEmpty)) break;
+    if (leaf != kEmpty) {
+      const int u = -leaf - 1;
+      const bool hit = leaf_test<kAnyHit>(ray, tris, u >> 4, (u & 15) + 1, t_best, prim,
+                                          b1, b2);
+      leaf = kEmpty;
+      if (kAnyHit && hit) {
+        next = kEmpty;
+        sp = -1;
+      }
+    }
   }
 }
 

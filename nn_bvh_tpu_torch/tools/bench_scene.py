@@ -258,12 +258,20 @@ def wave_batch_names(batches) -> list:
     return names
 
 
+def record_width(nodes: torch.Tensor) -> int:
+    """Boxes a record of a plain walk's node table holds, one box test each
+    per node visit: a wide record (W, width, 8) its width, a binary pair
+    record (N, 16) two."""
+    return nodes.shape[1] if nodes.dim() == 3 else 2
+
+
 def warp_work(counts: dict, width: int = 4) -> dict:
     """A plain walk's per-lane `counts` (traverse.*_plain(counts=)) -> the
     work of its live lanes (those that slab-tested at least one box): node
-    visits (box tests / `width`) and triangle tests per lane, mean, p99
-    and max, and the mean over live 32-lane groups (warps, in lane order) of
-    the group's most; a warp runs as long as its longest lane."""
+    visits (box tests / `width`, the record_width of its table) and
+    triangle tests per lane, mean, p99 and max, and the mean over live
+    32-lane groups (warps, in lane order) of the group's most; a warp runs
+    as long as its longest lane."""
     nodes = (counts["slab"] // width).cpu().numpy()
     tris = counts["tri"].cpu().numpy()
     live = nodes > 0
@@ -431,7 +439,8 @@ def profiler_us(fn, match: str = "", n: int = 20) -> float:
 PROFILED = ("camera closest", "bounce d1 closest")
 
 
-def time_traversals(fns: dict, batches: dict, plain: dispatch.Intersectors) -> dict:
+def time_traversals(fns: dict, batches: dict, plain: dispatch.Intersectors,
+                    timed: bool = True) -> dict:
     """Traversal kernels side by side. fns {label: fn(o, d, t_max, any_hit)},
     batches {name: (o, d, t_max, any_hit)}, `plain` the plain intersectors
     of the same scene. On each batch, the plain walk (one call between two
@@ -441,9 +450,10 @@ def time_traversals(fns: dict, batches: dict, plain: dispatch.Intersectors) -> d
     turns, the labels in order and then in reverse, so each is read twice
     around the others; then its host time per call, and torch.profiler's
     time of its kernels (`match` "traverse") on the batches named in
-    PROFILED. -> {name: {"live", warp_work's keys, "bound_ms", "bound_by",
-    "work", "plain_ms", "ties", "device_ms" (two readings), "host_us",
-    "profiler_us"; the last four by label}}."""
+    PROFILED. timed=False stops after the checks. -> {name: {"live",
+    warp_work's keys, "bound_ms", "bound_by", "work", "plain_ms", "ties",
+    "device_ms" (two readings), "host_us", "profiler_us"; the last four by
+    label}}."""
     rows = {}
     for name, (o, d, t_max, any_hit) in batches.items():
         counts = {}
@@ -454,12 +464,15 @@ def time_traversals(fns: dict, batches: dict, plain: dispatch.Intersectors) -> d
         end.record()
         torch.cuda.synchronize()
         bound, by, work = traversal_bound(counts, t_max, any_hit, plain.tables[0])
-        rows[name] = {**warp_work(counts), "bound_ms": bound, "bound_by": by, "work": work,
+        rows[name] = {**warp_work(counts, record_width(plain.tables[0])),
+                      "bound_ms": bound, "bound_by": by, "work": work,
                       "plain_ms": start.elapsed_time(end),
                       "ties": {label: check_hits(fn(o, d, t_max, any_hit), ref, t_max, any_hit,
                                                  f"{label} {name}")
                                for label, fn in fns.items()},
                       "device_ms": {}, "host_us": {}, "profiler_us": {}}
+    if not timed:
+        return rows
     for label in [*fns, *reversed(fns)]:
         for name, (o, d, t_max, any_hit) in batches.items():
             rows[name]["device_ms"].setdefault(label, []).append(

@@ -4,8 +4,8 @@
 
 Three packet kernels (csrc/kernel_lab.cu), each with its plain torch twin in
 this module, and the lab's harness. What they compute is the JAX lab's, on
-the port's tables (node records of `accel.binary.pack_binary_cuda`,
-triangles (N, 3, 3)):
+the lab's own tables (`lab_tables`: node records of
+`accel.binary.pack_binary_cuda`, triangles (N, 3, 3)):
 
 - `lab_traverse`: binary BVH packet traversal, a packet being `rows*128`
   lanes with one 64-entry stack; a node is visited when any lane's box test
@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..accel import dispatch, kernel_launch
+from ..accel import binary, dispatch, kernel_launch
 from ..accel.traverse import _slab, safe_inv, tri_isect
 from ..devices import resolve_device
 from ..geometry.scene import host
@@ -405,6 +405,17 @@ def floor_bench(nodes, ox, n_iter=5000, with_load=False, with_slab=False, rows=3
 # harness
 # ---------------------------------------------------------------------------
 
+def lab_tables(sc, dbvh, device=None) -> tuple:
+    """The lab's own tables of a scene on `device` (devices.resolve_device):
+    32-byte node records (`binary.pack_binary_cuda`) and (N, 3, 3) vertex
+    triangles."""
+    device = resolve_device(device, sc)
+    n = dbvh.n_nodes
+    lo, hi, meta = (host(x)[:n] for x in (dbvh.node_lo, dbvh.node_hi, dbvh.node_meta))
+    return (torch.as_tensor(binary.pack_binary_cuda(lo, hi, meta), device=device),
+            torch.as_tensor(np.ascontiguousarray(host(sc.tri_p), np.float32), device=device))
+
+
 def ray_classes(sc, dbvh, cam, R=65536, device=None):
     """The JAX lab's ray classes (kernel_lab.py:460-503), RandomState(7) in
     its order: camera rays, then diffuse-bounce and shadow rays from the
@@ -476,7 +487,7 @@ def main(argv=None) -> int:
     print(f"scene: {sc.n_tris} tris, {dbvh.n_nodes} nodes", flush=True)
     R = 65536
     rays = ray_classes(sc, dbvh, cam, R, dev)
-    nodes, tris = dispatch.make_intersectors(sc, dbvh, dev, backend="cuda_binary").tables
+    nodes, tris = lab_tables(sc, dbvh, dev)
     results = {}
 
     def run(tag, cls, fn=lab_traverse, **kw):

@@ -208,9 +208,8 @@ def test_plain_counts_the_work(backend, port_scene, ray_batch):
     assert (slab[~live] == 0).all() and (tri[~live] == 0).all()
     assert (slab[live] > 0).all()
     assert (tri[hit.prim >= 0] > 0).all()
-    width = isect.tables[0].shape[1] if isect.tables[0].dim() == 3 else 1
-    if width > 1:
-        assert (slab % width == 0).all()
+    width = bench_scene.record_width(isect.tables[0])  # boxes a record holds
+    assert width > 1 and (slab % width == 0).all()
     occ_counts = {}
     isect.fn(*isect.tables, o, d, t_max, True, counts=occ_counts)
     assert (occ_counts["tri"] <= tri).all() and (occ_counts["slab"] <= slab).all()
@@ -252,6 +251,49 @@ def test_binary_packers_byte_identical(host_tables):
     assert binary.tree_depth(meta) == j_ptrav.tree_depth(meta)
 
 
+def _decode_pairs(rec):
+    """Pair records -> {record: [(lo, hi, entry) of child 0, of child 1]}
+    and the header's (lo, hi, start entry)."""
+    ent = rec[:, 12:14].view(np.int32)
+    kids = {r: [(rec[r, 6 * c:6 * c + 3], rec[r, 6 * c + 3:6 * c + 6], int(ent[r, c]))
+                for c in range(2)] for r in range(1, len(rec))}
+    return kids, (rec[0, 0:3], rec[0, 3:6], int(ent[0, 0]))
+
+
+def test_binary_pairs_layout_decodes(host_tables):
+    """Walking the pair records from the header's entry meets every node of
+    the flat BVH once, with its box, as a record (interior) or a leaf entry
+    (offset, count); records 1.. hold the interior nodes in the flat tree's
+    (depth-first) order."""
+    lo, hi, meta, _ = host_tables
+    rec = binary.pack_binary_pairs(lo, hi, meta)
+    n_inner = int((meta[:, 1] == 0).sum())
+    assert rec.shape == (1 + n_inner, 16) and rec.dtype == np.float32
+    kids, (rlo, rhi, start) = _decode_pairs(rec)
+    np.testing.assert_array_equal(rlo, lo[0])
+    np.testing.assert_array_equal(rhi, hi[0])
+    assert (rec[0, 6:12] == np.float32(binary.EMPTY)).all()
+    assert rec[0, 13:14].view(np.int32)[0] == binary.NO_ENTRY
+    assert (rec[:, 14:16] == 0).all()
+    seen, record_of = [], {}
+    todo = [(0, start)]  # (flat node, entry)
+    while todo:
+        node, entry = todo.pop()
+        seen.append(node)
+        if meta[node, 1] > 0:
+            u = -entry - 1
+            assert entry < 0 and (u >> 4, (u & 15) + 1) == tuple(meta[node, :2])
+            continue
+        assert entry >= 1
+        record_of[node] = entry
+        for (clo, chi, cent), child in zip(kids[entry], (node + 1, meta[node, 0])):
+            np.testing.assert_array_equal(clo, lo[child])
+            np.testing.assert_array_equal(chi, hi[child])
+            todo.append((child, cent))
+    assert sorted(seen) == list(range(len(meta)))
+    assert [record_of[n] for n in sorted(record_of)] == list(range(1, 1 + n_inner))
+
+
 def test_binary_cuda_layout_decodes(host_tables):
     lo, hi, meta, _ = host_tables
     rec = binary.pack_binary_cuda(lo, hi, meta)
@@ -283,6 +325,55 @@ def test_binary_packer_raises():
         else:
             with pytest.raises(ValueError, match="stack"):
                 binary.pack_binary_cuda(db.node_lo, db.node_hi, db.node_meta, stack)
+
+
+def test_binary_pairs_packer_raises():
+    """The pair packer keeps pack_binary_cuda's checks: leaves of at most 8
+    triangles, depth < stack - 1."""
+    tri = np.random.RandomState(0).rand(9, 3, 3).astype(np.float32)
+    lo, hi = build.triangle_bounds(tri)
+    b = build.build_sah(lo, hi, max_leaf=9)
+    with pytest.raises(ValueError, match="at most 8"):
+        binary.pack_binary_pairs(b.node_lo, b.node_hi, b.node_meta)
+    for levels, stack, ok in ((62, 64, True), (63, 64, False), (126, 128, True),
+                              (127, 128, False)):
+        _, db = bench_scene.build_deep_tree(levels)
+        if ok:
+            binary.pack_binary_pairs(db.node_lo, db.node_hi, db.node_meta, stack)
+        else:
+            with pytest.raises(ValueError, match="stack"):
+                binary.pack_binary_pairs(db.node_lo, db.node_hi, db.node_meta, stack)
+
+
+@pytest.mark.parametrize("n_tris", [1, 2, 5, 40])
+def test_plain_binary_small_trees_match_brute(n_tris):
+    """Trees of one leaf (the header's entry is that leaf), two triangles
+    and a few leaves through plain_binary, closest and any-hit, against
+    intersect_brute; an empty tree walks nothing."""
+    rs = np.random.RandomState(n_tris)
+    tri = rs.rand(n_tris, 3, 3).astype(np.float32)
+    lo, hi = build.triangle_bounds(tri)
+    b = build.build_sah(lo, hi)
+    nodes = torch.as_tensor(binary.pack_binary_pairs(b.node_lo, b.node_hi, b.node_meta))
+    start = int(nodes[0, 12:13].view(torch.int32))
+    assert (start < 0) == (len(b.node_meta) == 1)
+    tri_p = torch.as_tensor(tri[b.prim_order])
+    o = torch.as_tensor((rs.rand(512, 3) * 1.6 - 0.3).astype(np.float32))
+    d = torch.as_tensor(rs.randn(512, 3).astype(np.float32))
+    d = d / d.norm(dim=1, keepdim=True)
+    t_max = torch.where(torch.arange(512) % 5 == 0, -1.0, 1e30)
+    hb = traverse.intersect_brute(tri_p, o, d, t_max)
+    assert 0 < int((hb.prim >= 0).sum()) < 400
+    for tris in (tri_p, torch.as_tensor(bvh4.pack_tris_cuda(tri_p.numpy()))):
+        h = traverse.traverse_binary_plain(nodes, tris, o, d, t_max, False)
+        assert all(torch.equal(a, b) for a, b in zip(h, hb))
+        occ = traverse.traverse_binary_plain(nodes, tris, o, d, t_max, True)
+        assert torch.equal(occ, (hb.prim >= 0) | (t_max < 0))
+    empty = torch.as_tensor(binary.pack_binary_pairs(np.zeros((0, 3)), np.zeros((0, 3)),
+                                                     np.zeros((0, 3), np.int32)))
+    counts = {}
+    h = traverse.traverse_binary_plain(empty, tri_p, o, d, t_max, False, counts=counts)
+    assert bool((h.prim == -1).all()) and int(counts["slab"].sum()) == 0
 
 
 def test_bvh8_collapse_and_pack_identical(host_tables):
@@ -335,16 +426,16 @@ def test_deep_tree_plain_matches_brute_and_hbm_interpret():
     tri, db = bench_scene.build_deep_tree(levels)
     assert binary.tree_depth(db.node_meta) == levels
     with pytest.raises(ValueError, match="stack"):
-        binary.pack_binary_cuda(db.node_lo, db.node_hi, db.node_meta, 64)
-    nodes = torch.as_tensor(binary.pack_binary_cuda(db.node_lo, db.node_hi, db.node_meta, 128))
+        binary.pack_binary_pairs(db.node_lo, db.node_hi, db.node_meta, 64)
+    nodes = torch.as_tensor(binary.pack_binary_pairs(db.node_lo, db.node_hi, db.node_meta, 128))
     rays = bench_scene.deep_tree_rays(levels, 1536)
     o, d, t_max = map(torch.from_numpy, rays)
-    tris = torch.as_tensor(tri)
+    tris = torch.as_tensor(bvh4.pack_tris_cuda(tri))
     counts = {}
     h = traverse.traverse_binary_plain(nodes, tris, o, d, t_max, False, 128, counts=counts)
-    hb = traverse.intersect_brute(tris, o, d, t_max)
+    hb = traverse.intersect_brute(torch.as_tensor(tri), o, d, t_max)
     assert torch.equal(h.prim, hb.prim) and torch.equal(h.t, hb.t)
-    assert int(counts["slab"].max()) > 2 * levels  # some rays walk the whole chain
+    assert int(counts["slab"].max()) == 2 * levels  # some rays visit every record of the chain
     assert 0.1 < float((h.prim >= 0).float().mean()) < 0.9
     occ = traverse.traverse_binary_plain(nodes, tris, o, d, t_max, True, 128)
     assert torch.equal(occ[t_max > 0], (hb.prim >= 0)[t_max > 0]) and bool(occ[t_max < 0].all())
@@ -375,12 +466,14 @@ def test_default_backend_follows_device_and_env(port_scene, monkeypatch):
 
 
 def test_intersectors_hold_tables_and_device(port_scene):
-    for backend, shape in (("plain", (4, 8)), ("plain_binary", (8,)),
-                           ("plain_binary_deep", (8,)), ("plain_bvh8", (8, 8))):
+    for backend, shape, tri_shape in (("plain", (4, 8), (3, 3)),
+                                      ("plain_binary", (16,), (3, 4)),
+                                      ("plain_binary_deep", (16,), (3, 4)),
+                                      ("plain_bvh8", (8, 8), (3, 3))):
         isect = dispatch.make_intersectors(*port_scene, "cpu", backend=backend)
         nodes, tris = isect.tables
         assert isect.device == torch.device("cpu") and nodes.device == isect.device
-        assert tuple(nodes.shape[1:]) == shape and tris.shape[1:] == (3, 3)
+        assert tuple(nodes.shape[1:]) == shape and tris.shape[1:] == tri_shape
         assert nodes.dtype == tris.dtype == torch.float32
 
 

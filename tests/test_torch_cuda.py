@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from nn_bvh_tpu_torch import accel
-from nn_bvh_tpu_torch.accel import binary, binary_kernel, bvh4_kernel, dispatch, traverse
+from nn_bvh_tpu_torch.accel import binary, binary_kernel, bvh4, bvh4_kernel, dispatch, traverse
 from nn_bvh_tpu_torch.accel.kernel_launch import n_launches
 from nn_bvh_tpu_torch.core import samplers
 from nn_bvh_tpu_torch.geometry import scene, transform
@@ -140,6 +140,29 @@ def test_kernel_meets_contract_on_wave_batches():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda_binary", "cuda_binary_deep"])
+def test_binary_kernels_meet_contract_on_wave_batches(backend):
+    """Both entries of csrc/binary_traverse.cu on the nine batches of one
+    bench wave (recorded through cuda_bvh4), against plain_binary on the
+    card, under the contract of bench_scene.check_hits."""
+    _need_card()
+    sc, dbvh, cam = bench_scene.build_bench_scene()
+    batches = bench_scene.wave_batches(sc, dbvh, cam, "cuda")
+    k = dispatch.make_intersectors(sc, dbvh, "cuda", backend=backend)
+    p = dispatch.make_intersectors(sc, dbvh, "cuda", backend="plain_binary")
+    name = binary_kernel.ENTRIES[128 if backend.endswith("deep") else 64]
+    before = n_launches[name]
+    ties = 0
+    for label, (o, d, t_max, any_hit) in zip(bench_scene.wave_batch_names(batches), batches):
+        out = k.fn(*k.tables, o, d, t_max, any_hit)
+        ref = p.fn(*p.tables, o, d, t_max, any_hit)
+        ties += bench_scene.check_hits(out, ref, t_max, any_hit, f"{backend} {label}")
+    torch.cuda.synchronize()
+    assert n_launches[name] == before + len(batches)
+    assert ties <= 16
+
+
+@pytest.mark.cuda
 def test_wave_kernel_matches_plain_on_cuda():
     """Same seed, same film through the kernel and the plain traversal."""
     _need_card()
@@ -201,14 +224,14 @@ def test_new_kernels_match_plain_on_bench_scene(bench, backend):
 def test_deep_kernel_on_deep_tree():
     _need_card()
     tri, db = bench_scene.build_deep_tree(100)
-    nodes = torch.as_tensor(binary.pack_binary_cuda(db.node_lo, db.node_hi, db.node_meta, 128),
+    nodes = torch.as_tensor(binary.pack_binary_pairs(db.node_lo, db.node_hi, db.node_meta, 128),
                             device="cuda")
-    tris = torch.as_tensor(tri, device="cuda")
+    tris = torch.as_tensor(bvh4.pack_tris_cuda(tri), device="cuda")
     rays = bench_scene.deep_tree_rays(100, 20000)
     o, d, t_max = (torch.as_tensor(x, device="cuda") for x in rays)
     hk = binary_kernel.traverse(nodes, tris, o, d, t_max, False, stack=128)
     hp = traverse.traverse_binary_plain(nodes, tris, o, d, t_max, False, 128)
-    hb = traverse.intersect_brute(tris, o, d, t_max)
+    hb = traverse.intersect_brute(torch.as_tensor(tri, device="cuda"), o, d, t_max)
     for a, b in zip(hk, hp):
         assert torch.equal(a, b)
     assert torch.equal(hk.prim, hb.prim)
@@ -234,11 +257,10 @@ LAB_VARIANTS = {
 
 
 def _lab_inputs():
-    from nn_bvh_tpu_torch.tools import kernel_lab  # noqa: F401  (imports no JAX)
+    from nn_bvh_tpu_torch.tools import kernel_lab  # imports no JAX
 
     sc, dbvh = _scene()
-    tables = dispatch.make_intersectors(sc, dbvh, "cuda", backend="cuda_binary").tables
-    return tables, _rays("cuda")
+    return kernel_lab.lab_tables(sc, dbvh, "cuda"), _rays("cuda")
 
 
 @pytest.mark.cuda

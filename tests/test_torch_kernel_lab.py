@@ -319,3 +319,15 @@ def test_main_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert kernel_lab.main(["--quick"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_lab_builds_its_own_tables(small_scene, tables):
+    """kernel_lab.lab_tables: the 32-byte node records and (N, 3, 3) vertex
+    triangles of the lab (not the traversal backends' tables), the same
+    bits as the tables these tests hand the lab."""
+    sc, dbvh = small_scene
+    psc, pbvh = scene.scene_from_numpy(sc._asdict(), dbvh._asdict(), "cpu")
+    nodes, tris = kernel_lab.lab_tables(psc, pbvh, "cpu")
+    assert nodes.shape == (dbvh.n_nodes, 8) and tris.shape == (len(sc.tri_p), 3, 3)
+    for a, b in zip((nodes, tris), tables[1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

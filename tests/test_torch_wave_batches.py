@@ -118,7 +118,7 @@ def test_warp_work_hand_made():
     assert w["nodes_p99"] == 10 and w["tris_p99"] == 30
     assert w["warp_nodes"] == pytest.approx((10 + 5) / 2)
     assert w["warp_tris"] == pytest.approx((8 + 30) / 2)
-    # a binary walk counts one box test per node
+    # width 1: one box test per node visit
     assert bs.warp_work(counts, width=1)["nodes_max"] == 40
     dead = bs.warp_work({"slab": torch.zeros(64, dtype=torch.int64),
                          "tri": torch.zeros(64, dtype=torch.int64)})
@@ -191,7 +191,7 @@ def test_traversal_bound_charges_records_read():
     assert work["ray_bytes"] == 2 * 24 + 3 * 4 + 3 * 4
 
 
-@pytest.mark.parametrize("backend,width", [("plain", 4), ("plain_binary", 1),
+@pytest.mark.parametrize("backend,width", [("plain", 4), ("plain_binary", 2),
                                            ("plain_bvh8", 8)])
 def test_plain_walk_counts_records_read(small_bench, batches, backend, width):
     """A single ray visits a node and tests a triangle at most once, so its
@@ -230,3 +230,46 @@ def test_ptxas_report_helpers():
     assert kernels.spill_bytes(log + spilled) == 20
     with pytest.raises(ValueError, match="no spill lines"):
         kernels.spill_bytes("nvcc: nothing to report")
+
+
+def test_ab_tool_specs():
+    from nn_bvh_tpu_torch.tools import bvh4_ab
+
+    assert bvh4_ab.parse_spec("pr2=build/x.cu:binary_traverse:binary32/33") == (
+        "pr2", "build/x.cu", "binary_traverse", "binary32/33")
+    assert bvh4_ab.parse_spec("t=a.cu") == ("t", "a.cu", "bvh4_traverse", "bvh4")
+    assert bvh4_ab.parse_spec("t=a.cu:binary_traverse_deep") == (
+        "t", "a.cu", "binary_traverse_deep", "binary")
+    assert bvh4_ab.parse_spec("t=a.cu:bvh8_traverse")[3] == "bvh8/33"
+    for bad in ("t=a.cu:bvh4_traverse:binary64", "t=a.cu:bvh4_traverse:bvh4/34"):
+        with pytest.raises(ValueError, match="layout"):
+            bvh4_ab.parse_spec(bad)
+
+
+@pytest.mark.parametrize("layout,node_shape,tri_shape,backend", [
+    ("bvh4", (4, 8), (3, 4), "cuda_bvh4"), ("bvh4/33", (4, 8), (3, 3), None),
+    ("bvh8/33", (8, 8), (3, 3), "plain_bvh8"), ("binary", (16,), (3, 4), "plain_binary"),
+    ("binary32/33", (8,), (3, 3), None), ("binary32", (8,), (3, 4), None)])
+def test_ab_tool_layout_tables(small_bench, layout, node_shape, tri_shape, backend):
+    """Each table layout the A/B tool names: its shapes, and the backend's
+    own tables where one reads it."""
+    from nn_bvh_tpu_torch.tools import bvh4_ab
+
+    sc, dbvh, _ = small_bench
+    nodes, tris = bvh4_ab.layout_tables(layout, sc, dbvh, "cpu")
+    assert tuple(nodes.shape[1:]) == node_shape and tuple(tris.shape[1:]) == tri_shape
+    bits = lambda x: torch.as_tensor(x).view(torch.int32)  # entries may read as NaN
+    if backend == "cuda_bvh4":
+        assert torch.equal(bits(nodes), bits(dispatch._node_table("bvh4", dbvh)))
+    elif backend:
+        for a, b in zip((nodes, tris), dispatch.make_intersectors(sc, dbvh, "cpu",
+                                                                  backend=backend).tables):
+            assert torch.equal(bits(a), bits(b))
+
+
+def test_ab_tool_needs_a_card(monkeypatch, capsys):
+    from nn_bvh_tpu_torch.tools import bvh4_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bvh4_ab.main(["t=nn_bvh_tpu_torch/csrc/binary_traverse.cu:binary_traverse"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
