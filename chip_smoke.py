@@ -69,11 +69,14 @@ points, once per traversal backend, and checks it:
    (bvh4_traverse against plain, binary_traverse and binary_traverse_deep
    against plain_binary, bvh8_traverse against plain_bvh8): for each batch,
    its live lanes, the plain walk's work per lane and per warp
-   (bench_scene.warp_work), the kernel's device time (two readings) and
-   host time, the plain version's time, the bound by phase 9's rule, and
-   phase 3's contract with its tie count; then for each kernel the sum,
-   its "traversal device ms per wave" with its bound, and torch.profiler's
-   device time of the kernel on two batches beside device_ms.
+   (bench_scene.warp_work), the kernel's device time (two readings), its
+   device time with L2 flushed before each call (device_ms(cold=True): a
+   write of twice the card's L2, the median of 50 calls each between its
+   own events) and host time, the plain version's time, the bound by phase
+   9's rule, and phase 3's contract with its tie count; then for each
+   kernel the sums, its "traversal device ms per wave" warm and cold with
+   its bound, and torch.profiler's device time of the kernel on two batches
+   beside device_ms.
 
 Any failure raises (exit code != 0). The last two lines of standard output
 are a JSON record of the kernels and {"ok": true, "device": {...}}.
@@ -331,11 +334,12 @@ def phase_wave_batches(torch, sc, dbvh, cam, dev):
         p_isect = dispatch.make_intersectors(sc, dbvh, dev, backend=plain)
         rows = bs.time_traversals(fns, batches, p_isect)
         for kname in fns:
-            total = {"device_ms": 0.0, "host_us": 0.0, "bound_ms": 0.0, "plain_ms": 0.0,
-                     "ties": 0}
+            total = {"device_ms": 0.0, "cold_ms": 0.0, "host_us": 0.0, "bound_ms": 0.0,
+                     "plain_ms": 0.0, "ties": 0}
             for name, row in rows.items():
                 ms = bs.mean_ms(row, kname)
-                for key, val in (("device_ms", ms), ("host_us", row["host_us"][kname]),
+                for key, val in (("device_ms", ms), ("cold_ms", row["cold_ms"][kname]),
+                                 ("host_us", row["host_us"][kname]),
                                  ("bound_ms", row["bound_ms"]), ("plain_ms", row["plain_ms"]),
                                  ("ties", row["ties"][kname])):
                     total[key] += val
@@ -344,11 +348,13 @@ def phase_wave_batches(torch, sc, dbvh, cam, dev):
                       f"{row['nodes_max']}; tris/lane {row['tris_mean']:.2f} max "
                       f"{row['tris_max']}; warp max nodes {row['warp_nodes']:.1f} tris "
                       f"{row['warp_tris']:.1f}; kernel "
-                      f"{'/'.join(f'{v:.4f}' for v in row['device_ms'][kname])} ms device, "
+                      f"{'/'.join(f'{v:.4f}' for v in row['device_ms'][kname])} ms device "
+                      f"(L2 flushed: {row['cold_ms'][kname]:.4f}), "
                       f"{row['host_us'][kname]:.1f} us host; {plain} {row['plain_ms']:.1f} ms; "
                       f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}; {row['work']}); "
                       f"contract met, {row['ties'][kname]} ties", flush=True)
-            print(f"phase 13: {kname}: traversal device ms per wave {total['device_ms']:.4f}, "
+            print(f"phase 13: {kname}: traversal device ms per wave {total['device_ms']:.4f} "
+                  f"warm, {total['cold_ms']:.4f} with L2 flushed before each call, "
                   f"bound {total['bound_ms']:.6f} ms (host {total['host_us']:.1f} us, {plain} "
                   f"{total['plain_ms']:.1f} ms), {total['ties']} tie lanes", flush=True)
             for name in bs.PROFILED:

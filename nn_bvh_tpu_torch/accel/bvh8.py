@@ -2,14 +2,17 @@
 nn_bvh_tpu/accel/bvh8.py:27-107, plus the CUDA kernel's own node layout).
 
 `collapse_bvh8` and `pack_wide` are copies of the JAX package's functions
-(the packed TPU tables are array-equal). `pack_bvh8_cuda` lays the same wide
-nodes out for `csrc/bvh8_traverse.cu`: one 256-byte record per wide node,
-8 children x [lo.xyz, hi.xyz, meta (i32 bits), pad] float32, (W, 8, 8), with
-the f32 bounds of the collapse (the TPU BVH8 table is f32 too).
+(the packed TPU tables are array-equal); their child meta is >= 0 for a
+wide-node index, < 0 for a leaf -(1 + offset*8 + (count-1)), and an empty
+child has lo = hi = 3e38 (missed for every ray, whatever its direction),
+meta 0.
 
-Child meta: >= 0 -> wide-node index; < 0 -> leaf
--(1 + offset*8 + (count-1)), count 1..8. Empty children: lo = hi = 3e38
-(missed for both direction signs), meta 0.
+`pack_bvh8_cuda` lays the same wide nodes out for `csrc/bvh8_traverse.cu`:
+one 256-byte record per wide node, 8 children x [lo.xyz, hi.xyz, entry
+(i32 bits), pad] float32, (W, 8, 8), with the f32 bounds of the collapse
+(the TPU BVH8 table is f32 too). The entry of a wide node is its index, of
+a leaf -(1 + offset*16 + (count-1)), the encoding `trav::walk` decodes; an
+empty child keeps meta 0 and its 3e38 box.
 """
 
 from __future__ import annotations
@@ -98,17 +101,24 @@ def pack_wide(wide_lo: np.ndarray, wide_hi: np.ndarray, wide_meta: np.ndarray):
 
 def pack_bvh8_cuda(wide_lo: np.ndarray, wide_hi: np.ndarray,
                    wide_meta: np.ndarray) -> np.ndarray:
-    """-> (W, 8, 8) f32 node records of the CUDA kernel. Raises when the
-    tree could overflow the kernel's per-ray stack (each level pops one entry
-    and pushes up to 8: at most 7*depth + 1 entries). The TPU packer
+    """-> (W, 8, 8) f32 node records of the CUDA kernel (module docstring).
+    Raises when the tree could overflow the kernel's per-ray stack: a node
+    step keeps the nearest hit child in a register and pushes at most the
+    other 7, so a walk holds at most 7*depth entries. The TPU packer
     (pallas_bvh8.PackedSceneW) has no such check."""
     depth = wide_depth(wide_meta)
-    if 7 * depth + 1 >= STACK_DEPTH:
+    if 7 * depth > STACK_DEPTH:
         raise ValueError(f"BVH8 depth {depth} overflows the kernel's "
                          f"{STACK_DEPTH}-entry stack")
+    meta = np.asarray(wide_meta, np.int64)
+    u = -meta - 1
+    off, cnt = u >> 3, (u & 7) + 1
+    leaf = meta < 0
+    if leaf.any() and (off[leaf].max() + 1) * 16 >= 2 ** 31:
+        raise ValueError("a leaf's triangle offset does not fit its int32 entry")
     W = len(wide_lo)
     out = np.zeros((W, WIDTH, 8), np.float32)
     out[..., 0:3] = wide_lo
     out[..., 3:6] = wide_hi
-    out[..., 6] = np.asarray(wide_meta, np.int64).astype(np.int32).view(np.float32)
+    out[..., 6] = np.where(leaf, -(1 + off * 16 + cnt - 1), meta).astype(np.int32).view(np.float32)
     return out

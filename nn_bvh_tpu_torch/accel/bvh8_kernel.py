@@ -32,9 +32,10 @@ def _entry():
 
 def traverse(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor,
              d: torch.Tensor, t_max: torch.Tensor, any_hit: bool = False):
-    """nodes (W,8,8) f32 (bvh8.pack_bvh8_cuda), tris (N,3,3) f32, o/d (R,3)
-    f32, t_max (R,) f32. Closest-hit -> Hit; any-hit -> (R,) bool occluded."""
+    """nodes (W,8,8) f32 (bvh8.pack_bvh8_cuda), tris (N,3,4) f32 records
+    (bvh4.pack_tris_cuda), o/d (R,3) f32, t_max (R,) f32. Closest-hit ->
+    Hit; any-hit -> (R,) bool occluded."""
     if o.device.type == "cpu":
         return traverse_bvh8_plain(nodes, tris, o, d, t_max, any_hit)
     return kernel_launch.launch(_entry(), NAME, nodes, (None, 8, 8), tris,
-                                (None, 3, 3), o, d, t_max, any_hit)
+                                (None, 3, 4), o, d, t_max, any_hit)

@@ -4,8 +4,8 @@ the ray re-sort key and sorted intersector
 
 `make_intersectors` packs one backend's tables once on the host and uploads
 them to the device: its node table, and the triangles as 16-byte records
-(`bvh4.pack_tris_cuda`) for `cuda_bvh4` and both binary layouts (kernel and
-plain twin alike), as (N, 3, 3) vertices for the others.
+(`bvh4.pack_tris_cuda`) for every backend but "plain", which reads the
+(N, 3, 3) vertices as the JAX package's XLA backend does.
 Every traversal backend of the JAX package has a hand-written CUDA kernel
 here, and each kernel a plain torch version:
 
@@ -99,11 +99,9 @@ class Intersectors:
 
 
 def _tri_table(backend: str, scene) -> np.ndarray:
-    """cuda_bvh4 and the binary layouts read 16-byte records, the others
-    (N, 3, 3)."""
+    """Every backend but "plain" reads 16-byte records, "plain" (N, 3, 3)."""
     tri_p = np.ascontiguousarray(host(scene.tri_p), dtype=np.float32)
-    records = backend == "cuda_bvh4" or _BACKENDS[backend][0].startswith("binary")
-    return bvh4.pack_tris_cuda(tri_p) if records else tri_p
+    return tri_p if backend == "plain" else bvh4.pack_tris_cuda(tri_p)
 
 
 def _node_table(layout: str, dbvh) -> np.ndarray:

@@ -22,11 +22,12 @@ Semantics (those of the TPU kernels):
   (pallas_traverse._tri_isect_tile); the first smallest t wins;
 - child order, per ray: BVH4 pushes hit children far to near by entry t
   (a stable descending sort, so on equal keys the higher slot is visited
-  first); BVH8 visits them near to far, stable (the lower slot first on
-  equal keys); the binary walk visits the nearer child by entry t first,
-  the right child on equal keys (BVH4's rule for two children). The TPU
-  kernels order by the packet's direction sign; the hits are the same but
-  on exact t ties.
+  first); BVH8 visits them near to far by packed keys (entry t's float32
+  bits with the slot in the low 3 bits: the lower slot first where the
+  keys agree above those bits); the binary walk visits the nearer child by
+  entry t first, the right child on equal keys (BVH4's rule for two
+  children). The TPU kernels order by the packet's direction sign or
+  minimum entry t; the hits are the same but on exact t ties.
 
 `counts`, a dict, receives per-ray int64 counts of box (slab) tests under
 "slab" and of triangle tests under "tri", and how many distinct node records
@@ -166,12 +167,12 @@ def _finish(t_best, prim, b1, b2, any_hit, counts, n_slab, n_tri, seen_node, see
     return Hit(t=torch.where(prim < 0, torch.inf, t_best), prim=prim, b1=b1, b2=b2)
 
 
-def _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, leaf_bits, stack_depth,
-                         near_first, counts):
+def _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, stack_depth, near_first, counts):
     """Wide-BVH walk over (W, width, 8) records [lo.xyz, hi.xyz, meta, pad];
-    leaf meta -(1 + offset << leaf_bits + count-1). near_first: push the hit
-    children so that the nearest is popped next, stable (lower slot first);
-    else push them in a stable descending sort of entry t (BVH4's rule)."""
+    leaf meta -(1 + offset*16 + count-1). near_first (BVH8's rule): push the
+    hit children so that the nearest is popped next, by packed keys (the
+    float32 bits of max(entry t, 0) with the slot in the low 3 bits); else
+    push them in a stable descending sort of entry t (BVH4's rule)."""
     R = o.shape[0]
     width = nodes.shape[1]
     lo_all = nodes[..., 0:3]
@@ -202,8 +203,8 @@ def _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, leaf_bits, stack_dep
                            t_best[ii][:, None])
             nhit = ok.sum(1)
             if near_first:
-                key = torch.where(ok, torch.clamp(tn, min=0.0), torch.inf)
-                _, order = torch.sort(key, dim=1, stable=True)
+                bits = (torch.clamp(tn.view(torch.int32), min=0) & ~7) | slot[None, :]
+                _, order = torch.sort(torch.where(ok, bits.long(), 0xFFFFFFFF), dim=1)
                 # push slot j takes the (nhit-1-j)-th nearest: far to near
                 order = order.gather(1, torch.clamp(nhit[:, None] - 1 - slot[None, :], min=0))
             else:
@@ -224,9 +225,8 @@ def _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, leaf_bits, stack_dep
         li = idx[leaf]
         if li.numel():
             u = -entry[leaf].long() - 1
-            off = u >> leaf_bits
-            got, tested = _leaf(li, off, (u & ((1 << leaf_bits) - 1)) + 1,
-                                tris, o, d, t_best, prim, b1, b2, any_hit)
+            off = u >> 4
+            got, tested = _leaf(li, off, (u & 15) + 1, tris, o, d, t_best, prim, b1, b2, any_hit)
             n_tri[li] += tested
             _mark_tris(seen_tri, off, tested)
             if any_hit:
@@ -242,17 +242,18 @@ def traverse_bvh4_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor
     """nodes (W,4,8) f32 (bvh4.pack_bvh4_cuda), tris (N,3,3) f32 or the
     kernel's (N,3,4) records (bvh4.pack_tris_cuda; same bits), o/d (R,3)
     f32, t_max (R,) f32. Closest-hit -> Hit; any-hit -> (R,) bool occluded."""
-    return _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, 4, bvh4.STACK_DEPTH,
-                                False, counts)
+    return _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, bvh4.STACK_DEPTH, False,
+                                counts)
 
 
 def traverse_bvh8_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor,
                         d: torch.Tensor, t_max: torch.Tensor, any_hit: bool,
                         counts: dict | None = None):
-    """nodes (W,8,8) f32 (bvh8.pack_bvh8_cuda), tris (N,3,3) f32, o/d (R,3)
-    f32, t_max (R,) f32. Closest-hit -> Hit; any-hit -> (R,) bool occluded."""
-    return _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, 3, bvh8.STACK_DEPTH,
-                                True, counts)
+    """nodes (W,8,8) f32 (bvh8.pack_bvh8_cuda), tris (N,3,4) records
+    (bvh4.pack_tris_cuda) or (N,3,3) f32 (same bits), o/d (R,3) f32,
+    t_max (R,) f32. Closest-hit -> Hit; any-hit -> (R,) bool occluded."""
+    return _traverse_wide_plain(nodes, tris, o, d, t_max, any_hit, bvh8.STACK_DEPTH, True,
+                                counts)
 
 
 def traverse_binary_plain(nodes: torch.Tensor, tris: torch.Tensor, o: torch.Tensor,

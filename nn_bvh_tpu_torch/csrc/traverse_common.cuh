@@ -16,8 +16,8 @@
 //
 // Triangles: (N, 3, 3) floats, [vertex][axis], or the 16-byte records of
 // bvh4_traverse.cu; load_tri reads either, tri_test and leaf_test take both.
-// walk is the per-ray loop of the BVH4 and binary kernels over their own
-// node steps.
+// walk is the per-ray loop of the BVH4, binary and BVH8 kernels over their
+// own node steps.
 
 #pragma once
 
@@ -163,7 +163,7 @@ __device__ __forceinline__ void store_hit(int r, float t_best, int prim,
   }
 }
 
-// Entries of the BVH4 and binary walks: a node record >= 0, a leaf
+// Entries of the walks: a node record >= 0, a leaf
 // -(1 + offset*16 + count-1), or kEmpty (none).
 constexpr int kEmpty = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;

@@ -5,7 +5,8 @@ batch (`warp_work`), a traversal call's bound and hit contract, a synthetic
 deep tree for the deep-stack traversal, a synthetic widening tree for the
 lab's stack check, and timing on the card: `device_ms` (device time per
 call, many calls between two CUDA events on a stream held busy while the
-host enqueues them), `host_us` (the host's time per call), `profiler_us`
+host enqueues them; or, with L2 flushed before each call, the median of
+single calls), `host_us` (the host's time per call), `profiler_us`
 (torch.profiler's device time, also for a call that waits for the device),
 `median_ms` (single calls between events; host and device time together,
 kept for the packet kernels) and `time_traversals` (traversal kernels held
@@ -363,15 +364,27 @@ def _sleep_cycles_per_ms() -> float:
     return cycles / start.elapsed_time(end)
 
 
-def device_ms(fn, n: int = 50) -> float:
+@functools.cache
+def _l2_flush(index: int) -> torch.Tensor:
+    """An int32 buffer of twice the L2 of card `index`: writing it evicts
+    whatever the last call left in L2."""
+    l2 = torch.cuda.get_device_properties(index).L2_cache_size
+    return torch.empty(2 * l2 // 4, dtype=torch.int32, device=torch.device("cuda", index))
+
+
+def device_ms(fn, n: int = 50, cold: bool = False) -> float:
     """Device time of one call of fn (ms) on the current stream: after a
     warm-up call, the stream is held busy by torch.cuda._sleep while the
     host enqueues a start event, n calls and an end event, so the events
     enclose only the device's work (and the gaps between back-to-back
-    launches). If the start event has already passed when the host is done
-    enqueuing, the sleep was too short and the measurement is repeated with
-    a longer one; when that keeps happening, fn waits for the device and
-    this raises (`profiler_us` measures such a fn). Raises without a card."""
+    launches). cold=True: before each call the stream writes a buffer of
+    twice the card's L2, so each call finds its tables in device memory,
+    each call lies between its own pair of events, and the median of the n
+    times is returned. If the (first) start event has already passed when
+    the host is done enqueuing, the sleep was too short and the measurement
+    is repeated with a longer one; when that keeps happening, fn waits for
+    the device and this raises (`profiler_us` measures such a fn). Raises
+    without a card."""
     _need_card("device_ms")
     fn()
     torch.cuda.synchronize()
@@ -379,19 +392,29 @@ def device_ms(fn, n: int = 50) -> float:
     fn()
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    flush = _l2_flush(torch.cuda.current_device()) if cold else None
     hold_ms = 2e3 * n * host_s + 1.0
     for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(n if cold else 1)]
         torch.cuda._sleep(int(hold_ms * _sleep_cycles_per_ms()))
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        held = not start.query()
+        if cold:
+            for start, end in events:
+                flush.fill_(0)
+                start.record()
+                fn()
+                end.record()
+        else:
+            events[0][0].record()
+            for _ in range(n):
+                fn()
+            events[0][1].record()
+        held = not events[0][0].query()
         torch.cuda.synchronize()
         if held:
-            return start.elapsed_time(end) / n
+            if cold:
+                return float(np.median([start.elapsed_time(end) for start, end in events]))
+            return events[0][0].elapsed_time(events[0][1]) / n
         hold_ms *= 4
     raise RuntimeError("device_ms: the start event passed before the host had enqueued the "
                        "calls, however long the stream was held: the function waits for the "
@@ -448,12 +471,13 @@ def time_traversals(fns: dict, batches: dict, plain: dispatch.Intersectors,
     (warp_work) and the bound (traversal_bound); every kernel is held to
     check_hits. Then each kernel's device time on every batch is read in
     turns, the labels in order and then in reverse, so each is read twice
-    around the others; then its host time per call, and torch.profiler's
-    time of its kernels (`match` "traverse") on the batches named in
-    PROFILED. timed=False stops after the checks. -> {name: {"live",
-    warp_work's keys, "bound_ms", "bound_by", "work", "plain_ms", "ties",
-    "device_ms" (two readings), "host_us", "profiler_us"; the last four by
-    label}}."""
+    around the others; then its device time with L2 flushed before each
+    call (device_ms(cold=True)), its host time per call, and
+    torch.profiler's time of its kernels (`match` "traverse") on the batches
+    named in PROFILED. timed=False stops after the checks. -> {name:
+    {"live", warp_work's keys, "bound_ms", "bound_by", "work", "plain_ms",
+    "ties", "device_ms" (two readings), "cold_ms", "host_us",
+    "profiler_us"; the last five by label}}."""
     rows = {}
     for name, (o, d, t_max, any_hit) in batches.items():
         counts = {}
@@ -470,7 +494,7 @@ def time_traversals(fns: dict, batches: dict, plain: dispatch.Intersectors,
                       "ties": {label: check_hits(fn(o, d, t_max, any_hit), ref, t_max, any_hit,
                                                  f"{label} {name}")
                                for label, fn in fns.items()},
-                      "device_ms": {}, "host_us": {}, "profiler_us": {}}
+                      "device_ms": {}, "cold_ms": {}, "host_us": {}, "profiler_us": {}}
     if not timed:
         return rows
     for label in [*fns, *reversed(fns)]:
@@ -480,6 +504,7 @@ def time_traversals(fns: dict, batches: dict, plain: dispatch.Intersectors,
     for label, fn in fns.items():
         for name, (o, d, t_max, any_hit) in batches.items():
             call = lambda: fn(o, d, t_max, any_hit)
+            rows[name]["cold_ms"][label] = device_ms(call, cold=True)
             rows[name]["host_us"][label] = host_us(call)
             if name in PROFILED:
                 rows[name]["profiler_us"][label] = profiler_us(call, "traverse")

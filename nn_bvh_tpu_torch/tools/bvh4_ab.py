@@ -9,7 +9,10 @@ of the signature of csrc/*_traverse.cu (`trav::launch`), reading the tables
 LAYOUT names (default: the tables of ENTRY's backend in `accel.dispatch`):
 
 - `bvh4`: `bvh4.pack_bvh4_cuda` records (cuda_bvh4's);
-- `bvh8`: `bvh8.pack_bvh8_cuda` records (cuda_bvh8's);
+- `bvh8`: `bvh8.pack_bvh8_cuda` records (cuda_bvh8's); `bvh8/33` the
+  tables of the first BVH8 kernel (commit eb8ad6e): the same records with
+  the collapse's own leaf entries -(1 + offset*8 + count-1), and (N, 3, 3)
+  triangles;
 - `binary`: `binary.pack_binary_pairs` records (cuda_binary's);
 - `binary32`: `binary.pack_binary_cuda` 32-byte records (PR 2's kernel and
   the kernel lab's);
@@ -30,8 +33,9 @@ and "probe incoherent" rays, closest and any-hit) go through
 binary): every kernel held against the family's plain traversal (plain,
 plain_bvh8, plain_binary), then read twice by `bench_scene.device_ms` in
 turns around the others of its family, with the plain walk's per-warp work,
-the bound, the host time of a call and torch.profiler's time on two batches
-beside it. `--check` stops after the checks.
+the bound, the device time with L2 flushed before each call, the host time
+of a call and torch.profiler's time on two batches beside it. `--check`
+stops after the checks.
 
 Needs a CUDA card (exits 1 without one). The last line of standard output
 is one JSON object with the summary, the card's name and its power limit;
@@ -51,12 +55,12 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..accel import binary, bvh4, dispatch, kernel_launch
+from ..accel import binary, bvh4, bvh8, dispatch, kernel_launch
 from ..geometry.scene import host
 from . import bench_scene as bs
 
 # ENTRY -> its default LAYOUT
-ENTRY_LAYOUTS = {"bvh4_traverse": "bvh4", "bvh8_traverse": "bvh8/33",
+ENTRY_LAYOUTS = {"bvh4_traverse": "bvh4", "bvh8_traverse": "bvh8",
                  "binary_traverse": "binary", "binary_traverse_deep": "binary"}
 # node layout -> (family's plain backend, node shape the kernel is given)
 NODE_LAYOUTS = {"bvh4": ("plain", (None, 4, 8)), "bvh8": ("plain_bvh8", (None, 8, 8)),
@@ -105,6 +109,8 @@ def layout_tables(layout: str, sc, dbvh, dev) -> tuple:
         nodes = binary.pack_binary_cuda(lo, hi, meta)
     else:
         nodes = dispatch._node_table(kind, dbvh)
+        if layout == "bvh8/33":  # the first BVH8 kernel's leaf entries
+            nodes[..., 6] = bvh8.collapse_bvh8(lo, hi, meta)[2].astype(np.int32).view(np.float32)
     tri_p = np.ascontiguousarray(host(sc.tri_p), dtype=np.float32)
     tris = tri_p if tri_kind == "33" else bvh4.pack_tris_cuda(tri_p)
     return torch.as_tensor(nodes, device=dev), torch.as_tensor(tris, device=dev)
@@ -177,21 +183,25 @@ def main(argv=None) -> int:
             summary.update({label: {"ties": sum(r["ties"][label] for r in rows.values())}
                             for label in fns})
             continue
-        print(f"\n{'batch':24s}" + "".join(f"{lb:>22s}" for lb in fns) + "   bound", flush=True)
+        print(f"\n{'batch':24s}" + "".join(f"{lb + ' warm / cold':>30s}" for lb in fns)
+              + "   bound", flush=True)
         for name, row in rows.items():
-            cells = "".join(f"{min(v):10.4f}/{max(v):<10.4f} " for v in row["device_ms"].values())
+            cells = "".join(f"{min(v):9.4f}/{max(v):<9.4f} {row['cold_ms'][lb]:9.4f} "
+                            for lb, v in row["device_ms"].items())
             print(f"{name:24s}{cells}  {row['bound_ms']:.6f}", flush=True)
         for label in fns:
             summary[label] = {
                 "wave_ms": sum(bs.mean_ms(rows[n], label) for n in wave_names),
                 "wave_bound_ms": wave_bound,
+                "wave_cold_ms": sum(rows[n]["cold_ms"][label] for n in wave_names),
                 "wave_host_us": sum(rows[n]["host_us"][label] for n in wave_names),
                 "ties": sum(r["ties"][label] for r in rows.values()),
                 "probe_ms": {n: bs.mean_ms(rows[n], label) for n in rows
                              if n not in wave_names},
                 "profiler_us": {n: rows[n]["profiler_us"][label] for n in bs.PROFILED}}
             print(f"{label}: traversal device ms per wave {summary[label]['wave_ms']:.4f} "
-                  f"(bound {wave_bound:.6f}), host us per wave "
+                  f"(bound {wave_bound:.6f}; L2 flushed before each call "
+                  f"{summary[label]['wave_cold_ms']:.4f}), host us per wave "
                   f"{summary[label]['wave_host_us']:.1f}; phase-3 batches "
                   f"{summary[label]['probe_ms']}; profiler us {summary[label]['profiler_us']}",
                   flush=True)

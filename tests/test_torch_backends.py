@@ -385,26 +385,124 @@ def test_bvh8_collapse_and_pack_identical(host_tables):
         np.testing.assert_array_equal(a, b)
 
 
-def test_bvh8_cuda_layout_decodes(host_tables):
-    lo, hi, meta, _ = host_tables
+def _check_bvh8_records(lo, hi, meta):
+    """pack_bvh8_cuda on the collapse of a flat BVH: the collapse's float32
+    boxes, node entries equal, leaf entries the same (offset, count) in the
+    walk's encoding, empty children entry 0 with their 3e38 box. -> the
+    collapse and the records."""
     wl, wh, wm = bvh8.collapse_bvh8(lo, hi, meta)
     rec = bvh8.pack_bvh8_cuda(wl, wh, wm)
-    assert rec.shape == (len(wl), 8, 8)
+    assert rec.shape == (len(wl), 8, 8) and rec.dtype == np.float32
     np.testing.assert_array_equal(rec[..., 0:3], wl)
     np.testing.assert_array_equal(rec[..., 3:6], wh)
-    np.testing.assert_array_equal(rec[..., 6].view(np.int32), wm)
+    ent = rec[..., 6].view(np.int32)
+    node, leaf, empty = wm > 0, wm < 0, wm == 0
+    np.testing.assert_array_equal(ent[node], wm[node])
+    u_old, u_new = -wm[leaf] - 1, -ent[leaf].astype(np.int64) - 1
+    assert (ent[leaf] < 0).all()
+    np.testing.assert_array_equal(u_new >> 4, u_old >> 3)
+    np.testing.assert_array_equal((u_new & 15) + 1, (u_old & 7) + 1)
+    assert (ent[empty] == 0).all() and (rec[empty][:, 0:6] == np.float32(3e38)).all()
+    return (wl, wh, wm), rec
+
+
+def test_bvh8_cuda_layout_decodes(host_tables):
+    """The kernel's records hold the collapse (_check_bvh8_records): the
+    TPU table's bounds and, but for the leaf encoding, its meta."""
+    lo, hi, meta, _ = host_tables
+    (wl, wh, wm), rec = _check_bvh8_records(lo, hi, meta)
     bt, mt = bvh8.pack_wide(wl, wh, wm)
     n = np.arange(len(wl))
     bt = bt.reshape(-1, 8, 128)
     for f in range(6):
         np.testing.assert_array_equal(bt[n // 16, :, (n % 16) * 8 + f], rec[..., f])
-    np.testing.assert_array_equal(mt.reshape(-1, 8, 128)[n // 16, :, n % 16],
-                                  rec[..., 6].view(np.int32))
-    empty = (wm == 0) & (wl[..., 0] == 3e38)
-    assert empty.any() and (rec[empty][:, 0:6] == np.float32(3e38)).all()
+    mt = mt.reshape(-1, 8, 128)[n // 16, :, n % 16]
+    np.testing.assert_array_equal(mt[wm >= 0], rec[..., 6].view(np.int32)[wm >= 0])
+    assert (wm == 0).any() and (wm < 0).any()
+
+
+def _random_scene_tables(seed):
+    """A random soup of 300 triangles of mixed sizes, SAH-built by the port."""
+    rs = np.random.RandomState(seed)
+    c = rs.randn(300, 1, 3).astype(np.float32) * 4
+    tri = (c + rs.randn(300, 3, 3).astype(np.float32) * rs.choice([1e-3, 0.05, 1.0],
+                                                                  (300, 1, 1))).astype(np.float32)
+    lo, hi = build.triangle_bounds(tri)
+    b = build.build_sah(lo, hi)
+    return b.node_lo, b.node_hi, b.node_meta, tri[b.prim_order]
+
+
+@pytest.mark.parametrize("seed", [4, 9])
+def test_bvh8_records_on_random_scenes(seed):
+    """_check_bvh8_records on random scenes, and plain_bvh8 on their
+    records against brute force."""
+    lo, hi, meta, tri = _random_scene_tables(seed)
+    _, rec = _check_bvh8_records(lo, hi, meta)
+    rs = np.random.RandomState(seed)
+    o = torch.as_tensor(rs.randn(1024, 3).astype(np.float32) * 5)
+    d = torch.as_tensor(rs.randn(1024, 3).astype(np.float32))
+    d = d / d.norm(dim=1, keepdim=True)
+    t_max = torch.full((1024,), 1e30)
+    h = traverse.traverse_bvh8_plain(torch.as_tensor(rec),
+                                     torch.as_tensor(bvh4.pack_tris_cuda(tri)), o, d, t_max,
+                                     False)
+    hb = traverse.intersect_brute(torch.as_tensor(tri), o, d, t_max)
+    assert all(torch.equal(a, b) for a, b in zip(h, hb))
+    assert int((hb.prim >= 0).sum()) > 50
+
+
+def test_bvh8_empty_children_miss(host_tables):
+    """An empty child (3e38 box, entry 0) fails the slab test of every ray:
+    random rays, rays along the axes and the diagonals (where the three
+    slabs agree), from inside and outside the scene, with a finite and an
+    infinite t_max; so the walk never pushes entry 0 (the root)."""
+    lo, hi, meta, _ = host_tables
+    _, rec = _check_bvh8_records(lo, hi, meta)
+    rs = np.random.RandomState(5)
+    d = rs.randn(4096, 3).astype(np.float32)
+    axes = np.concatenate([np.eye(3), -np.eye(3)]).astype(np.float32)
+    diag = np.array(np.meshgrid(*[[-1.0, 1.0]] * 3)).reshape(3, -1).T.astype(np.float32)
+    d = np.concatenate([d, axes, diag / np.sqrt(np.float32(3))])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = (rs.randn(len(d), 3) * 10).astype(np.float32)
+    o, d = torch.as_tensor(o)[:, None, :], torch.as_tensor(d)
+    inv = traverse.safe_inv(d)[:, None, :]
+    empty = torch.as_tensor(rec[rec[..., 6].view(np.int32) == 0])  # (n, 8)
+    assert len(empty)
+    for t in (1e30, float("inf")):
+        hit, _ = traverse._slab(empty[None, :, 0:3], empty[None, :, 3:6], o, inv,
+                                torch.full((len(d), 1), t))
+        assert not bool(hit.any())
+
+
+@pytest.mark.parametrize("n_tris", [1, 2, 9, 40])
+def test_plain_bvh8_small_trees_match_brute(n_tris):
+    """A tree of one leaf (the root's one child), two triangles and a few
+    wide nodes through plain_bvh8, closest and any-hit, both triangle
+    layouts, against intersect_brute."""
+    rs = np.random.RandomState(n_tris)
+    tri = rs.rand(n_tris, 3, 3).astype(np.float32)
+    lo, hi = build.triangle_bounds(tri)
+    b = build.build_sah(lo, hi, max_leaf=4)
+    nodes = torch.as_tensor(bvh8.pack_bvh8_cuda(*bvh8.collapse_bvh8(b.node_lo, b.node_hi,
+                                                                     b.node_meta)))
+    tri_p = torch.as_tensor(tri[b.prim_order])
+    o = torch.as_tensor((rs.rand(512, 3) * 1.6 - 0.3).astype(np.float32))
+    d = torch.as_tensor(rs.randn(512, 3).astype(np.float32))
+    d = d / d.norm(dim=1, keepdim=True)
+    t_max = torch.where(torch.arange(512) % 5 == 0, -1.0, 1e30)
+    hb = traverse.intersect_brute(tri_p, o, d, t_max)
+    assert 0 < int((hb.prim >= 0).sum()) < 400
+    for tris in (tri_p, torch.as_tensor(bvh4.pack_tris_cuda(tri_p.numpy()))):
+        h = traverse.traverse_bvh8_plain(nodes, tris, o, d, t_max, False)
+        assert all(torch.equal(a, b) for a, b in zip(h, hb))
+        occ = traverse.traverse_bvh8_plain(nodes, tris, o, d, t_max, True)
+        assert torch.equal(occ, (hb.prim >= 0) | (t_max < 0))
 
 
 def test_bvh8_packer_raises_on_deep_tree():
+    """A walk keeps at most 7 entries a level on its 192-entry stack: depth
+    27 (189 entries) packs, depth 28 (196) is refused."""
     def chain(W):  # a chain of wide nodes, depth W
         lo = np.zeros((W, 8, 3), np.float32)
         hi = np.ones((W, 8, 3), np.float32)
@@ -413,9 +511,9 @@ def test_bvh8_packer_raises_on_deep_tree():
         return lo, hi, meta
 
     assert bvh4.wide_depth(chain(27)[2]) == 27
-    bvh8.pack_bvh8_cuda(*chain(27))  # 7*27 + 1 = 190 entries
+    bvh8.pack_bvh8_cuda(*chain(27))  # 7*27 = 189 entries
     with pytest.raises(ValueError, match="stack"):
-        bvh8.pack_bvh8_cuda(*chain(28))  # 197
+        bvh8.pack_bvh8_cuda(*chain(28))  # 196
 
 
 def test_deep_tree_plain_matches_brute_and_hbm_interpret():
@@ -469,7 +567,7 @@ def test_intersectors_hold_tables_and_device(port_scene):
     for backend, shape, tri_shape in (("plain", (4, 8), (3, 3)),
                                       ("plain_binary", (16,), (3, 4)),
                                       ("plain_binary_deep", (16,), (3, 4)),
-                                      ("plain_bvh8", (8, 8), (3, 3))):
+                                      ("plain_bvh8", (8, 8), (3, 4))):
         isect = dispatch.make_intersectors(*port_scene, "cpu", backend=backend)
         nodes, tris = isect.tables
         assert isect.device == torch.device("cpu") and nodes.device == isect.device

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from nn_bvh_tpu_torch import accel
-from nn_bvh_tpu_torch.accel import binary, binary_kernel, bvh4, bvh4_kernel, dispatch, traverse
+from nn_bvh_tpu_torch.accel import (binary, binary_kernel, bvh4, bvh4_kernel, bvh8_kernel,
+                                    dispatch, traverse)
 from nn_bvh_tpu_torch.accel.kernel_launch import n_launches
 from nn_bvh_tpu_torch.core import samplers
 from nn_bvh_tpu_torch.geometry import scene, transform
@@ -139,18 +140,14 @@ def test_kernel_meets_contract_on_wave_batches():
     assert ties <= 16
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("backend", ["cuda_binary", "cuda_binary_deep"])
-def test_binary_kernels_meet_contract_on_wave_batches(backend):
-    """Both entries of csrc/binary_traverse.cu on the nine batches of one
-    bench wave (recorded through cuda_bvh4), against plain_binary on the
-    card, under the contract of bench_scene.check_hits."""
-    _need_card()
+def _contract_on_wave_batches(backend, plain, name):
+    """`backend`'s kernel on the nine batches of one bench wave (recorded
+    through cuda_bvh4) against `plain` on the card, under the contract of
+    bench_scene.check_hits; its launches (kernel `name`) = the batches."""
     sc, dbvh, cam = bench_scene.build_bench_scene()
     batches = bench_scene.wave_batches(sc, dbvh, cam, "cuda")
     k = dispatch.make_intersectors(sc, dbvh, "cuda", backend=backend)
-    p = dispatch.make_intersectors(sc, dbvh, "cuda", backend="plain_binary")
-    name = binary_kernel.ENTRIES[128 if backend.endswith("deep") else 64]
+    p = dispatch.make_intersectors(sc, dbvh, "cuda", backend=plain)
     before = n_launches[name]
     ties = 0
     for label, (o, d, t_max, any_hit) in zip(bench_scene.wave_batch_names(batches), batches):
@@ -160,6 +157,43 @@ def test_binary_kernels_meet_contract_on_wave_batches(backend):
     torch.cuda.synchronize()
     assert n_launches[name] == before + len(batches)
     assert ties <= 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda_binary", "cuda_binary_deep"])
+def test_binary_kernels_meet_contract_on_wave_batches(backend):
+    """Both entries of csrc/binary_traverse.cu on the nine batches of one
+    bench wave against plain_binary."""
+    _need_card()
+    _contract_on_wave_batches(backend, "plain_binary",
+                              binary_kernel.ENTRIES[128 if backend.endswith("deep") else 64])
+
+
+@pytest.mark.cuda
+def test_bvh8_kernel_meets_contract_on_wave_batches():
+    """csrc/bvh8_traverse.cu on the nine batches of one bench wave, against
+    plain_bvh8."""
+    _need_card()
+    _contract_on_wave_batches("cuda_bvh8", "plain_bvh8", bvh8_kernel.NAME)
+
+
+@pytest.mark.cuda
+def test_bvh8_wrapper_refuses_vertex_triangle_table():
+    """The BVH8 kernel reads 16-byte triangle records and (W, 8, 8) node
+    records: an (N, 3, 3) table or a BVH4 node table is refused before
+    launch."""
+    _need_card()
+    sc, dbvh = _scene()
+    nodes, recs = dispatch.make_intersectors(sc, dbvh, "cuda", backend="cuda_bvh8").tables
+    assert nodes.shape[1:] == (8, 8) and recs.shape[1:] == (3, 4)
+    verts = dispatch.make_intersectors(sc, dbvh, "cuda", backend="plain").tables[1]
+    bvh4_nodes = dispatch.make_intersectors(sc, dbvh, "cuda").tables[0]
+    o, d, t_max = _rays("cuda")
+    before = n_launches[bvh8_kernel.NAME]
+    for bad_nodes, bad_tris in ((nodes, verts), (bvh4_nodes, recs)):
+        with pytest.raises(ValueError, match="shape"):
+            bvh8_kernel.traverse(bad_nodes, bad_tris, o, d, t_max)
+    assert n_launches[bvh8_kernel.NAME] == before
 
 
 @pytest.mark.cuda

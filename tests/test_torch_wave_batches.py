@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from nn_bvh_tpu_torch import accel, kernels
-from nn_bvh_tpu_torch.accel import dispatch, traverse
+from nn_bvh_tpu_torch.accel import bvh8, dispatch, traverse
 from nn_bvh_tpu_torch.core import samplers
 from nn_bvh_tpu_torch.geometry import scene, transform
 from nn_bvh_tpu_torch.tools import bench_scene as bs
@@ -165,6 +165,16 @@ def test_check_hits_contract():
         bs.check_hits(~occ, occ, t_max, True, "any")
 
 
+def test_cold_device_ms_raises_without_card(monkeypatch):
+    """The L2-flushed reading, like the warm one, needs a card: nothing is
+    timed on the host instead."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        bs.device_ms(lambda: calls.append(1), cold=True)
+    assert not calls
+
+
 @pytest.mark.parametrize("fn", ["device_ms", "host_us", "profiler_us"])
 def test_timing_raises_without_card(monkeypatch, fn):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -240,7 +250,8 @@ def test_ab_tool_specs():
     assert bvh4_ab.parse_spec("t=a.cu") == ("t", "a.cu", "bvh4_traverse", "bvh4")
     assert bvh4_ab.parse_spec("t=a.cu:binary_traverse_deep") == (
         "t", "a.cu", "binary_traverse_deep", "binary")
-    assert bvh4_ab.parse_spec("t=a.cu:bvh8_traverse")[3] == "bvh8/33"
+    assert bvh4_ab.parse_spec("t=a.cu:bvh8_traverse")[3] == "bvh8"
+    assert bvh4_ab.parse_spec("pr2=b.cu:bvh8_traverse:bvh8/33")[3] == "bvh8/33"
     for bad in ("t=a.cu:bvh4_traverse:binary64", "t=a.cu:bvh4_traverse:bvh4/34"):
         with pytest.raises(ValueError, match="layout"):
             bvh4_ab.parse_spec(bad)
@@ -248,8 +259,9 @@ def test_ab_tool_specs():
 
 @pytest.mark.parametrize("layout,node_shape,tri_shape,backend", [
     ("bvh4", (4, 8), (3, 4), "cuda_bvh4"), ("bvh4/33", (4, 8), (3, 3), None),
-    ("bvh8/33", (8, 8), (3, 3), "plain_bvh8"), ("binary", (16,), (3, 4), "plain_binary"),
-    ("binary32/33", (8,), (3, 3), None), ("binary32", (8,), (3, 4), None)])
+    ("bvh8/33", (8, 8), (3, 3), None), ("binary", (16,), (3, 4), "plain_binary"),
+    ("binary32/33", (8,), (3, 3), None), ("binary32", (8,), (3, 4), None),
+    ("bvh8", (8, 8), (3, 4), "plain_bvh8")])
 def test_ab_tool_layout_tables(small_bench, layout, node_shape, tri_shape, backend):
     """Each table layout the A/B tool names: its shapes, and the backend's
     own tables where one reads it."""
@@ -265,6 +277,13 @@ def test_ab_tool_layout_tables(small_bench, layout, node_shape, tri_shape, backe
         for a, b in zip((nodes, tris), dispatch.make_intersectors(sc, dbvh, "cpu",
                                                                   backend=backend).tables):
             assert torch.equal(bits(a), bits(b))
+    if layout == "bvh8/33":  # the collapse's own leaf entries
+        ref = dispatch._node_table("bvh8", dbvh)
+        assert torch.equal(nodes[..., :6], torch.as_tensor(ref[..., :6]))
+        n = dbvh.n_nodes
+        wm = bvh8.collapse_bvh8(*(np.asarray(x)[:n] for x in (dbvh.node_lo, dbvh.node_hi,
+                                                               dbvh.node_meta)))[2]
+        assert torch.equal(bits(nodes[..., 6]), torch.as_tensor(wm.astype(np.int32)))
 
 
 def test_ab_tool_needs_a_card(monkeypatch, capsys):
