@@ -12,8 +12,7 @@ points, once per traversal backend, and checks it:
    limit;
 2. build: compiles the three traversal sources and the lab's of csrc/ with
    nvcc, one process each, all at once; prints their ptxas register / spill
-   lines and fails if a per-ray traversal kernel spills (the lab's kernels
-   may);
+   lines and fails if any kernel spills;
 3. BVH4 kernel vs plain: closest-hit and any-hit on 160,000 camera rays and
    160,000 incoherent rays (20% dead lanes), through the CUDA kernel and the
    plain torch traversal, under the kernels' contract
@@ -48,9 +47,13 @@ points, once per traversal backend, and checks it:
    the bench scene's camera, bounce and shadow classes at R = 65,536):
    launches of lab_traverse, floor_bench and brless_traverse > 0, and one
    of binary_traverse (the camera hits of the ray classes), nothing else;
-11. each lab variant (lab_traverse rows 8, 16, 32, k_pop 2 and 4, no leaf
-   tests, vec; brless_traverse both modes) on each class: its time (CUDA
-   events, median of 5) beside cuda_binary's (device_ms); its prims against
+11. each lab variant (kernel_lab.VARIANTS: lab_traverse rows 8, 16, 32,
+   k_pop 2 and 4, no leaf tests, vec; brless_traverse both modes) on each
+   class: its time (CUDA events, median of 5) beside cuda_binary's
+   (device_ms), the cluster geometry it ran with (kernel_lab.launch_geometry:
+   blocks per packet, threads a block) and the microseconds per
+   visit of the longest packet (ms / its visits: max cnt, or for brless the
+   plain version's count where it ran); its prims against
    cuda_binary's on live lanes (a lane that differs must be a tie, both
    hits, |dt| <= 1e-4); bit for bit against its plain version (t, prim,
    cnt, cnt2) on the camera and shadow classes, and on the bounce class
@@ -106,18 +109,6 @@ LAB_REPLACES = {"lab_traverse": "tools/perf/kernel_lab.py:202",
                 "brless_traverse": "tools/perf/kernel_lab.py:360",
                 "floor_bench": "tools/perf/kernel_lab.py:434"}
 LAB_R = 65536
-# name -> (kernel, keyword arguments); the first of each kernel is timed
-LAB_VARIANTS = {
-    "lab rows=32 k=1": ("lab_traverse", dict(rows=32, count=True)),
-    "lab rows=16 k=1": ("lab_traverse", dict(rows=16, count=True)),
-    "lab rows=8 k=1": ("lab_traverse", dict(rows=8, count=True)),
-    "lab rows=32 k=2": ("lab_traverse", dict(rows=32, k_pop=2, count=True)),
-    "lab rows=32 k=4": ("lab_traverse", dict(rows=32, k_pop=4, count=True)),
-    "lab rows=32 no leaf": ("lab_traverse", dict(rows=32, leaf_mode="none", count=True)),
-    "lab rows=32 vec": ("lab_traverse", dict(rows=32, vec=True, count=True)),
-    "brless leaf=always": ("brless_traverse", dict(rows=32, leaf_when=False)),
-    "brless leaf=select": ("brless_traverse", dict(rows=32, leaf_when=True)),
-}
 FLOOR_VARIANTS = {"floor: stack only": (False, False), "floor: +load+extract": (True, False),
                   "floor: +slab+any": (True, True)}
 FLOOR_ITERS = 20000
@@ -439,13 +430,15 @@ def phase_lab_variants(torch, sc, dbvh, cam, dev):
         ms_binary[cls] = device_ms(lambda: isect.closest(o, d, t_max))
         print(f"phase 11: {cls}: {int(live.sum())} live lanes, cuda_binary {ms_binary[cls]:.4f} ms, "
               f"hits {int((ref.prim >= 0).sum())}")
-        for tag, (name, kw) in LAB_VARIANTS.items():
+        for tag, (name, kw) in kernel_lab.VARIANTS.items():
             timed = cls == "bounce" and name not in rows
             out = kern[name](nodes, tris, o, d, t_max, **kw)
             ms = median_ms(lambda: kern[name](nodes, tris, o, d, t_max, **kw))
-            line = f"phase 11: {tag:20s} {cls:7s} kernel {ms:9.4f} ms"
+            r = kw["rows"]
+            line = (f"phase 11: {tag:20s} {cls:7s} kernel {ms:9.4f} ms, cluster/threads "
+                    f"{kernel_lab.launch_geometry(r)}")
+            visits = int(out[2].max())
             if kw.get("count"):
-                r = kw["rows"]
                 line += f", iters {int(out[2][::r, 0].sum())}, leafs {int(out[3][::r, 0].sum())}"
             prim, t = out[1].reshape(-1)[:LAB_R].cpu(), out[0].reshape(-1)[:LAB_R].cpu()
             if kw.get("leaf_mode") != "none":
@@ -468,6 +461,10 @@ def phase_lab_variants(torch, sc, dbvh, cam, dev):
                     check(a.shape == b.shape and bool(torch.equal(a, b)),
                           f"{tag} {cls}: {what} differs from the plain version")
                 line += f", bit-equal to plain ({plain_ms:.1f} ms, one call)"
+                if not visits:  # brless writes no counters: the plain walk's visits
+                    visits = int(lab_counts["slab"].max()) // (r * 128)
+            if visits:
+                line += f", {ms * 1e3 / visits:.3f} us per visit of the longest packet ({visits})"
             if timed:
                 flops, nbytes, work = lab_bound(lab_counts, LAB_R, out[0].numel(), table_bytes)
                 bound, by = bound_of(flops, nbytes)
@@ -527,9 +524,7 @@ def main() -> int:
         log = kernels.ptxas_log(name)
         for line in kernels.ptxas_lines(log):
             print(f"phase 2: {name}: {line}")
-        # the lab's variants with 4 lanes a thread spill by design
-        if name != "kernel_lab":
-            check(kernels.spill_bytes(log) == 0, f"{name} spills: {kernels.ptxas_lines(log)}")
+        check(kernels.spill_bytes(log) == 0, f"{name} spills: {kernels.ptxas_lines(log)}")
 
     t0 = time.perf_counter()
     sc, dbvh, cam = bench_scene.build_bench_scene()

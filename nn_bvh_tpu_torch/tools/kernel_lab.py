@@ -1,6 +1,8 @@
 """Traversal kernel lab on the CUDA card (port of tools/perf/kernel_lab.py).
 
     python -m nn_bvh_tpu_torch.tools.kernel_lab [--quick]
+    python -m nn_bvh_tpu_torch.tools.kernel_lab --source LABEL=PATH[:block] ... [--quick]
+        [--json PATH]
 
 Three packet kernels (csrc/kernel_lab.cu), each with its plain torch twin in
 this module, and the lab's harness. What they compute is the JAX lab's, on
@@ -13,7 +15,9 @@ the lab's own tables (`lab_tables`: node records of
   direction on the split axis; `k_pop` entries popped per iteration (an
   empty slot visits the root, and counts); leaf tests compiled out with
   `leaf_mode="none"`; `cnt` (visits) and `cnt2` (leaf visits that some lane
-  hit) per packet, written to every lane when `count`.
+  hit) per packet, written to every lane when `count`. On the card a
+  packet runs as a thread-block cluster (`launch_geometry`) whose vote
+  crosses its blocks through distributed shared memory.
 - `brless_traverse`: the branchless variant: leaf tests every iteration at
   clamped indices, masked; unconditional pushes. Its counters are zero, as
   the reference never writes them.
@@ -34,6 +38,17 @@ variants per class. `--quick` keeps the bounce class. Times are CUDA events,
 the median of 5 calls after a warm-up. It needs a card and exits 1 without
 one; the last line of standard output is one JSON object with every number,
 the card's name and nvidia-smi's name and power limit.
+
+With `--source`, the harness times the two packet traversals of several
+sources of csrc/kernel_lab.cu side by side instead: each PATH is built once
+(`bvh4_ab.build_sources`: kernels.NVCC_FLAGS, `-I` csrc/ and the source's
+own directory) and its ptxas report printed; `:block` marks a source whose
+entries take no launch geometry (one packet per block, as up to commit
+f002d054). For each class and each of `VARIANTS`, every source runs in
+turns (A B ... B A; `timeit` each), its outputs must equal the first
+source's bit for bit (t, prim, cnt, cnt2), and the line gives each source's
+two medians, its cluster geometry and, with counters, the microseconds per
+visit of the longest packet (ms / max cnt). --json PATH writes the report.
 """
 
 from __future__ import annotations
@@ -42,6 +57,7 @@ import argparse
 import ctypes
 import functools
 import json
+import os
 import subprocess
 import sys
 
@@ -62,6 +78,11 @@ STACK_DEPTH = 64
 MAX_LEAF = 8
 MAX_THREADS = 1024
 ROWS = (1, 2, 4, 8, 16, 32)
+# a packet's launch geometry (launch_geometry): a cluster of at most
+# MAX_CLUSTER blocks of WARP..BLOCK_THREADS threads, one lane a thread
+MAX_CLUSTER = 8
+BLOCK_THREADS = 512
+WARP = 32
 MAX_POP = 4
 FLOOR_WRAP = 17000
 # floor_bench's address ((node % 17000) // 128) * 128 + node % 128 reaches
@@ -72,27 +93,55 @@ FLOOR_SLOTS = 32
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _ARGTYPES = {
-    "lab_traverse": [_VP] * 5 + [_INT] * 6 + [_VP] * 6,
-    "brless_traverse": [_VP] * 5 + [_INT] * 4 + [_VP] * 6,
+    "lab_traverse": [_VP] * 5 + [_INT] * 8 + [_VP] * 6,
+    "brless_traverse": [_VP] * 5 + [_INT] * 6 + [_VP] * 6,
     "floor_bench": [_VP, _VP] + [_INT] * 4 + [_VP, _VP],
 }
+# the entries of a source with one packet per block (commit f002d054 and
+# earlier): no cluster and threads arguments
+_BLOCK_ARGTYPES = {"lab_traverse": [_VP] * 5 + [_INT] * 6 + [_VP] * 6,
+                   "brless_traverse": [_VP] * 5 + [_INT] * 4 + [_VP] * 6}
 
 
 class StackOverflow(ValueError):
     """A packet walk needed more than the 64 entries of its stack."""
 
 
-@functools.cache
-def _entry(name: str):
-    fn = getattr(kernels.load(SOURCE), name)
-    fn.argtypes = _ARGTYPES[name]
+def _bind(lib, name: str, argtypes: dict):
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes[name]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
+def _entry(name: str):
+    return _bind(kernels.load(SOURCE), name, _ARGTYPES)
+
+
 def block_threads(rows: int) -> int:
-    """Threads of a packet's block: min(rows*128, 1024)."""
+    """Threads of the direction sums' order: min(rows*128, 1024) (the
+    block of one packet per block)."""
     return min(rows * LANES, MAX_THREADS)
+
+
+def launch_geometry(rows: int, cluster=None) -> tuple:
+    """-> (cluster, threads) of the packet kernels: a packet of rows*128
+    lanes is a cluster of C blocks of `threads` threads, one lane a thread
+    (C a power of two, at most MAX_CLUSTER; WARP..BLOCK_THREADS threads).
+    C is the most blocks that hold a warp's lanes each: min(8, rows*4). On
+    the H100 that beat the fewest blocks that fill the 132 SMs once (rows
+    16 and 8 at R = 65,536: C = 4 and 2), since several clusters then share
+    an SM and hide each other's waits (PERF.md §6). `cluster` forces C
+    (ValueError where no block of 32..512 threads holds its share)."""
+    _check_args(rows)
+    lanes = rows * LANES
+    if cluster is None:
+        cluster = min(MAX_CLUSTER, lanes // WARP)
+    if cluster not in (1, 2, 4, 8) or not WARP <= lanes // cluster <= BLOCK_THREADS:
+        raise ValueError(f"no launch geometry has a cluster of {cluster} blocks for "
+                         f"rows={rows}: a block holds {WARP}..{BLOCK_THREADS} lanes")
+    return cluster, lanes // cluster
 
 
 def _check_args(rows: int, k_pop: int = 1, leaf_mode: str = "extract8"):
@@ -307,6 +356,9 @@ def _check_traversal(nodes, tris, o, d, t_max, rows):
     kernel_launch.check("t_max", t_max, (R,), dev)
     if R + rows * LANES >= 2 ** 31:
         raise ValueError(f"{R} rays exceed the kernel's int32 lane count")
+    if nodes.data_ptr() % 16:
+        raise ValueError("nodes must start on a 16-byte boundary (the kernels load records "
+                         "as float4)")
 
 
 def _check_floor(nodes, ox, rows):
@@ -320,12 +372,18 @@ def _check_floor(nodes, ox, rows):
         raise ValueError(f"ox has {ox.shape[0]} values, the packet {rows * LANES}")
 
 
-def _launch_traversal(name, args, nodes, tris, o, d, t_max, rows):
-    """Pad, launch kernel `name` with the extra int `args`, check the
-    overflow flag -> (t, prim, cnt, cnt2)."""
+def _launch_traversal(fn, name, args, nodes, tris, o, d, t_max, rows, cluster=None):
+    """Check the tensors, pad, launch `fn` (the C entry `name`) with the
+    extra int `args` after the launch geometry (launch_geometry;
+    cluster="block": an entry of one packet per block, which takes none),
+    check the overflow flag -> (t, prim, cnt, cnt2). Launches count under
+    `name`."""
+    _check_traversal(nodes, tris, o, d, t_max, rows)
     o, d, t_max = _pad(o, d, t_max, rows)
     Rp = o.shape[0]
     dev = o.device
+    n_packets = Rp // (rows * LANES)
+    geo = () if cluster == "block" else launch_geometry(rows, cluster)
     t = torch.empty(Rp, dtype=torch.float32, device=dev)
     prim = torch.empty(Rp, dtype=torch.int32, device=dev)
     cnt = torch.empty(Rp, dtype=torch.int32, device=dev)
@@ -333,10 +391,10 @@ def _launch_traversal(name, args, nodes, tris, o, d, t_max, rows):
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _entry(name)(nodes.data_ptr(), tris.data_ptr(), o.data_ptr(), d.data_ptr(),
-                          t_max.data_ptr(), Rp // (rows * LANES), rows, *args, t.data_ptr(),
-                          prim.data_ptr(), cnt.data_ptr(), cnt2.data_ptr(),
-                          overflow.data_ptr(), stream)
+        rc = fn(nodes.data_ptr(), tris.data_ptr(), o.data_ptr(), d.data_ptr(),
+                t_max.data_ptr(), n_packets, rows, *geo, *args,
+                t.data_ptr(), prim.data_ptr(), cnt.data_ptr(), cnt2.data_ptr(),
+                overflow.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     if Rp:
@@ -349,10 +407,13 @@ def _launch_traversal(name, args, nodes, tris, o, d, t_max, rows):
 
 
 def lab_traverse(nodes, tris, o, d, t_max, rows=32, k_pop=1, leaf_mode="extract8",
-                 count=False, vec=False):
+                 count=False, vec=False, cluster=None):
     """nodes (Nn, 8) f32 (binary.pack_binary_cuda), tris (N, 3, 3), o/d
     (R, 3), t_max (R,) f32 -> t, prim, cnt, cnt2, each (Rp/128, 128).
-    rows in ROWS, 1 <= k_pop <= 4.
+    rows in ROWS, 1 <= k_pop <= 4. On the card a packet runs as a cluster
+    of `launch_geometry` blocks; `cluster` forces its size (1, 2, 4 or 8),
+    which changes no result. A cluster launch that the card refuses
+    raises.
 
     Stack bound: with k_pop = 1 a packet holds at most depth + 1 entries,
     which the packer's depth check (depth < 63) keeps inside the 64; with
@@ -362,26 +423,40 @@ def lab_traverse(nodes, tris, o, d, t_max, rows=32, k_pop=1, leaf_mode="extract8
     the call raises StackOverflow (after a sync) when one would pass the
     64th entry."""
     if o.device.type == "cpu":
+        _check_cluster(rows, cluster)
         return lab_traverse_plain(nodes, tris, o, d, t_max, rows, k_pop, leaf_mode, count,
                                   vec)
     _check_args(rows, k_pop, leaf_mode)
-    _check_traversal(nodes, tris, o, d, t_max, rows)
-    return _launch_traversal("lab_traverse",
-                             (k_pop, int(leaf_mode == "extract8"), int(vec), int(count)),
-                             nodes, tris, o, d, t_max, rows)
+    return _launch_traversal(_entry("lab_traverse"), "lab_traverse",
+                             lab_args(k_pop, leaf_mode, count, vec), nodes, tris, o, d, t_max,
+                             rows, cluster)
 
 
-def brless_traverse(nodes, tris, o, d, t_max, rows=32, leaf_when=False):
+def lab_args(k_pop=1, leaf_mode="extract8", count=False, vec=False) -> tuple:
+    """The C entry lab_traverse's int arguments after the geometry."""
+    return k_pop, int(leaf_mode == "extract8"), int(vec), int(count)
+
+
+def brless_traverse(nodes, tris, o, d, t_max, rows=32, leaf_when=False, cluster=None):
     """Tables and rays as `lab_traverse` -> t, prim, cnt, cnt2 (the counters
-    zero). Stack bound: the walk keeps a node of depth >= p at entry p and
-    writes entry sp + 1, at most depth + 1; the packer's depth check keeps
-    that under 64, and the kernel checks it anyway (StackOverflow)."""
+    zero); `cluster` as there. Stack bound: the walk keeps a node of depth
+    >= p at entry p and writes entry sp + 1, at most depth + 1; the
+    packer's depth check keeps that under 64, and the kernel checks it
+    anyway (StackOverflow)."""
     if o.device.type == "cpu":
+        _check_cluster(rows, cluster)
         return brless_traverse_plain(nodes, tris, o, d, t_max, rows, leaf_when)
     _check_args(rows)
-    _check_traversal(nodes, tris, o, d, t_max, rows)
-    return _launch_traversal("brless_traverse", (tris.shape[0], int(leaf_when)), nodes,
-                             tris, o, d, t_max, rows)
+    return _launch_traversal(_entry("brless_traverse"), "brless_traverse",
+                             (tris.shape[0], int(leaf_when)), nodes, tris, o, d, t_max, rows,
+                             cluster)
+
+
+def _check_cluster(rows, cluster):
+    """A forced cluster size is checked on the CPU too (the plain walk
+    has no geometry, and its result is the same for every one)."""
+    if cluster is not None:
+        launch_geometry(rows, cluster)
 
 
 def floor_bench(nodes, ox, n_iter=5000, with_load=False, with_slab=False, rows=32):
@@ -464,6 +539,54 @@ def ray_classes(sc, dbvh, cam, R=65536, device=None):
             "shadow": sorted_batch(os_, sd, ts)}
 
 
+# chip_smoke phase 11's variants and the --source harness's: tag ->
+# (kernel, keyword arguments); the first of each kernel is timed there
+VARIANTS = {
+    "lab rows=32 k=1": ("lab_traverse", dict(rows=32, count=True)),
+    "lab rows=16 k=1": ("lab_traverse", dict(rows=16, count=True)),
+    "lab rows=8 k=1": ("lab_traverse", dict(rows=8, count=True)),
+    "lab rows=32 k=2": ("lab_traverse", dict(rows=32, k_pop=2, count=True)),
+    "lab rows=32 k=4": ("lab_traverse", dict(rows=32, k_pop=4, count=True)),
+    "lab rows=32 no leaf": ("lab_traverse", dict(rows=32, leaf_mode="none", count=True)),
+    "lab rows=32 vec": ("lab_traverse", dict(rows=32, vec=True, count=True)),
+    "brless leaf=always": ("brless_traverse", dict(rows=32, leaf_when=False)),
+    "brless leaf=select": ("brless_traverse", dict(rows=32, leaf_when=True)),
+}
+
+
+def source_fns(lib, label: str, block: bool) -> dict:
+    """The packet traversals of a built kernel_lab source -> {kernel name:
+    fn(nodes, tris, o, d, t_max, **kw)}, launches counted as
+    "LABEL:NAME"; `block`: entries without launch geometry."""
+    argtypes = _BLOCK_ARGTYPES if block else _ARGTYPES
+    lab, brless = (_bind(lib, n, argtypes) for n in ("lab_traverse", "brless_traverse"))
+    cluster = "block" if block else None
+
+    def lab_fn(nodes, tris, o, d, t_max, rows=32, k_pop=1, leaf_mode="extract8", count=False,
+               vec=False):
+        _check_args(rows, k_pop, leaf_mode)
+        return _launch_traversal(lab, f"{label}:lab_traverse",
+                                 lab_args(k_pop, leaf_mode, count, vec), nodes, tris, o, d,
+                                 t_max, rows, cluster)
+
+    def brless_fn(nodes, tris, o, d, t_max, rows=32, leaf_when=False):
+        _check_args(rows)
+        return _launch_traversal(brless, f"{label}:brless_traverse",
+                                 (tris.shape[0], int(leaf_when)), nodes, tris, o, d, t_max,
+                                 rows, cluster)
+
+    return {"lab_traverse": lab_fn, "brless_traverse": brless_fn}
+
+
+def parse_source(spec: str):
+    """"LABEL=PATH[:block]" -> (label, path, block)."""
+    label, rest = spec.split("=", 1)
+    path, _, abi = rest.partition(":")
+    if abi not in ("", "block"):
+        raise ValueError(f"unknown entry signature {abi!r} (only 'block')")
+    return label, path, abi == "block"
+
+
 def timeit(fn, *args, n=5, **kw):
     """-> (median ms of n calls by CUDA events after a warm-up, last result)."""
     out = []
@@ -471,9 +594,65 @@ def timeit(fn, *args, n=5, **kw):
     return ms, out[-1]
 
 
+def compare_sources(specs, classes, rays, nodes, tris, smi, json_path=None) -> int:
+    """The --source harness (module docstring) -> exit code."""
+    from .bvh4_ab import build_sources
+
+    specs = [parse_source(s) for s in specs]
+    built = build_sources([path for _, path, _ in specs])
+    ptxas = {path: kernels.ptxas_lines(log) for path, (_, log) in built.items()}
+    for path, lines in ptxas.items():
+        for line in lines:
+            print(f"ptxas {path}: {line}", flush=True)
+    fns = {label: source_fns(built[path][0], label, block) for label, path, block in specs}
+    labels = list(fns)
+    R = rays["bounce"][0].shape[0]
+    report = {}
+    for cls in classes:
+        o, d, t_max = rays[cls]
+        for tag, (kname, kw) in VARIANTS.items():
+            times, outs = {lb: [] for lb in labels}, {}
+            for lb in labels + labels[::-1]:
+                ms, outs[lb] = timeit(fns[lb][kname], nodes, tris, o, d, t_max, **kw)
+                times[lb].append(ms)
+            for lb in labels[1:]:
+                for a, b, what in zip(outs[lb], outs[labels[0]], ("t", "prim", "cnt", "cnt2")):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{tag} {cls}: {lb}'s {what} differs from "
+                                             f"{labels[0]}'s")
+            rows = kw["rows"]
+            n_packets = -(-R // (rows * LANES))
+            visits = int(outs[labels[0]][2].max()) if kw.get("count") else 0
+            rec = {"visits_longest_packet": visits, "geometry": launch_geometry(rows)}
+            line = f"{tag:22s} {cls:7s}"
+            for lb in labels:
+                ms = float(np.mean(times[lb]))
+                rec[lb] = {"ms": ms, "readings": times[lb]}
+                line += f"  {lb} {ms:9.4f} ({'/'.join(f'{x:.4f}' for x in times[lb])})"
+                if visits:
+                    rec[lb]["us_per_visit"] = ms * 1e3 / visits
+                    line += f" {ms * 1e3 / visits:.3f} us/visit"
+            line += (f"; {n_packets} packets, cluster/threads {rec['geometry']}"
+                     + (f", longest packet {visits} visits" if visits else "")
+                     + f"; {labels[1:]} bit-equal to {labels[0]}")
+            print(line, flush=True)
+            report[f"{tag} {cls}"] = rec
+    out = {"kernel_lab_sources": report, "sources": {lb: p for lb, p, _ in specs},
+           "device": torch.cuda.get_device_name(0), "name_power_limit": smi}
+    if json_path:
+        os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)
+        with open(json_path, "w") as f:
+            json.dump({**out, "ptxas": ptxas}, f, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true", help="the bounce class only")
+    ap.add_argument("--source", action="append", metavar="LABEL=PATH[:block]",
+                    help="time these kernel_lab sources side by side (repeatable)")
+    ap.add_argument("--json", help="with --source: write the report to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_lab: no CUDA device", file=sys.stderr)
@@ -488,6 +667,9 @@ def main(argv=None) -> int:
     R = 65536
     rays = ray_classes(sc, dbvh, cam, R, dev)
     nodes, tris = lab_tables(sc, dbvh, dev)
+    classes = ["bounce"] if args.quick else ["camera", "bounce", "shadow"]
+    if args.source:
+        return compare_sources(args.source, classes, rays, nodes, tris, smi, args.json)
     results = {}
 
     def run(tag, cls, fn=lab_traverse, **kw):
@@ -503,7 +685,6 @@ def main(argv=None) -> int:
         print(line, flush=True)
         results[f"{tag} {cls}"] = rec
 
-    classes = ["bounce"] if args.quick else ["camera", "bounce", "shadow"]
     for cls in classes:
         run("sq rows=32 k=1", cls, rows=32, k_pop=1)
     for cls in classes:

@@ -290,6 +290,11 @@ LAB_VARIANTS = {
 }
 
 
+# a packet of rows*128 lanes runs as a cluster of 1-8 blocks of at most 512
+# threads (kernel_lab.launch_geometry); None: the size the wrapper picks
+LAB_CLUSTERS = {4: (None, 1, 2, 4, 8), 8: (None, 2, 4), 16: (None, 4), 32: (None,)}
+
+
 def _lab_inputs():
     from nn_bvh_tpu_torch.tools import kernel_lab  # imports no JAX
 
@@ -297,39 +302,52 @@ def _lab_inputs():
     return kernel_lab.lab_tables(sc, dbvh, "cuda"), _rays("cuda")
 
 
+def _lab_batches(rays, rows):
+    """The 20,000 rays; one packet; three packets, the last of them 100
+    live lanes and the rest padding."""
+    P = rows * 128
+    return {"all": rays, "one packet": tuple(x[:P] for x in rays),
+            "padded": tuple(x[:2 * P + 100] for x in rays)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", list(LAB_VARIANTS))
-def test_lab_kernel_matches_plain(variant):
+@pytest.mark.parametrize("variant,cluster", [(v, c) for v, kw in LAB_VARIANTS.items()
+                                             for c in LAB_CLUSTERS[kw["rows"]]])
+def test_lab_kernel_matches_plain(variant, cluster):
     _need_card()
     from nn_bvh_tpu_torch.tools import kernel_lab
 
     tables, rays = _lab_inputs()
     kw = LAB_VARIANTS[variant]
-    before = n_launches["lab_traverse"]
-    out = kernel_lab.lab_traverse(*tables, *rays, **kw)
-    torch.cuda.synchronize()
-    assert n_launches["lab_traverse"] == before + 1
-    ref = kernel_lab.lab_traverse_plain(*tables, *rays, **kw)
-    for a, b in zip(out, ref):
-        assert a.shape == b.shape and torch.equal(a, b)
-    if kw.get("count"):
-        assert int(out[2].min()) > 0
+    for name, batch in _lab_batches(rays, kw["rows"]).items():
+        before = n_launches["lab_traverse"]
+        out = kernel_lab.lab_traverse(*tables, *batch, cluster=cluster, **kw)
+        torch.cuda.synchronize()
+        assert n_launches["lab_traverse"] == before + 1
+        ref = kernel_lab.lab_traverse_plain(*tables, *batch, **kw)
+        for a, b in zip(out, ref):
+            assert a.shape == b.shape and torch.equal(a, b), name
+        if kw.get("count"):
+            assert int(out[2].min()) > 0
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,cluster", [(16, None), (4, 1), (4, 2), (4, 4), (4, 8)])
 @pytest.mark.parametrize("leaf_when", [False, True])
-def test_brless_kernel_matches_plain(leaf_when):
+def test_brless_kernel_matches_plain(leaf_when, rows, cluster):
     _need_card()
     from nn_bvh_tpu_torch.tools import kernel_lab
 
     tables, rays = _lab_inputs()
-    out = kernel_lab.brless_traverse(*tables, *rays, rows=16, leaf_when=leaf_when)
-    ref = kernel_lab.brless_traverse_plain(*tables, *rays, rows=16, leaf_when=leaf_when)
-    for a, b in zip(out, ref):
-        assert torch.equal(a, b)
-    assert not out[2].any() and not out[3].any()
-    lab = kernel_lab.lab_traverse(*tables, *rays, rows=16)
-    assert torch.equal(lab[1], out[1]) and torch.equal(lab[0], out[0])
+    for name, batch in _lab_batches(rays, rows).items():
+        out = kernel_lab.brless_traverse(*tables, *batch, rows=rows, leaf_when=leaf_when,
+                                         cluster=cluster)
+        ref = kernel_lab.brless_traverse_plain(*tables, *batch, rows=rows, leaf_when=leaf_when)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b), name
+        assert not out[2].any() and not out[3].any()
+        lab = kernel_lab.lab_traverse(*tables, *batch, rows=rows, cluster=cluster)
+        assert torch.equal(lab[1], out[1]) and torch.equal(lab[0], out[0])
 
 
 @pytest.mark.cuda
@@ -361,10 +379,12 @@ def test_lab_kernel_raises_on_stack_overflow():
                             device="cuda")
     tris = torch.as_tensor(tri, device="cuda")
     o, d, t_max = (torch.as_tensor(x, device="cuda") for x in bench_scene.widening_tree_rays(2048))
-    for k_pop in (1, 2):
-        out = kernel_lab.lab_traverse(nodes, tris, o, d, t_max, rows=8, k_pop=k_pop, count=True)
-        ref = kernel_lab.lab_traverse_plain(nodes, tris, o, d, t_max, rows=8, k_pop=k_pop,
-                                            count=True)
-        assert all(torch.equal(a, b) for a, b in zip(out, ref))
-    with pytest.raises(kernel_lab.StackOverflow):
-        kernel_lab.lab_traverse(nodes, tris, o, d, t_max, rows=8, k_pop=4)
+    for cluster in (None, 8):  # 8: an overflow that any block finds is raised
+        for k_pop in (1, 2):
+            out = kernel_lab.lab_traverse(nodes, tris, o, d, t_max, rows=8, k_pop=k_pop,
+                                          count=True, cluster=cluster)
+            ref = kernel_lab.lab_traverse_plain(nodes, tris, o, d, t_max, rows=8, k_pop=k_pop,
+                                                count=True)
+            assert all(torch.equal(a, b) for a, b in zip(out, ref))
+        with pytest.raises(kernel_lab.StackOverflow):
+            kernel_lab.lab_traverse(nodes, tris, o, d, t_max, rows=8, k_pop=4, cluster=cluster)

@@ -331,3 +331,96 @@ def test_lab_builds_its_own_tables(small_scene, tables):
     assert nodes.shape == (dbvh.n_nodes, 8) and tris.shape == (len(sc.tri_p), 3, 3)
     for a, b in zip((nodes, tris), tables[1]):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("n_packets", [1, 16, 64, 132, 600])
+@pytest.mark.parametrize("rows", kernel_lab.ROWS)
+def test_launch_geometry_covers_every_lane_once(rows, n_packets):
+    """A packet is a cluster of C blocks (a power of two, at most 8, at
+    most rows*128/32: no block under a warp's lanes) of `threads` threads
+    with one lane each (threads x 1 x C = rows*128); the n_packets x C
+    blocks hold every lane of the batch exactly once, in the kernel's
+    mapping (packet, block rank, thread); C is the most blocks of at least
+    a warp."""
+    C, T = kernel_lab.launch_geometry(rows)
+    P = rows * 128
+    assert C in (1, 2, 4, 8) and C <= P // 32 and (C == 8 or P // (2 * C) < 32)
+    assert T * 1 * C == P and 32 <= T <= 512 and T % 32 == 0
+    lanes = np.zeros(n_packets * P, np.int64)
+    for packet in range(n_packets):
+        for rank in range(C):
+            lanes[packet * P + rank * T + np.arange(T)] += 1
+    assert (lanes == 1).all()
+
+
+def test_launch_geometry_refuses_what_no_kernel_runs():
+    assert [kernel_lab.launch_geometry(r) for r in kernel_lab.ROWS] == [
+        (4, 32), (8, 32), (8, 64), (8, 128), (8, 256), (8, 512)]
+    assert kernel_lab.launch_geometry(8, cluster=2) == (2, 512)
+    assert kernel_lab.launch_geometry(4, cluster=1) == (1, 512)
+    for rows, cluster in ((32, 4), (16, 2), (8, 1), (1, 8), (8, 3), (8, 16)):
+        with pytest.raises(ValueError, match="cluster"):
+            kernel_lab.launch_geometry(rows, cluster)
+    with pytest.raises(ValueError, match="rows"):
+        kernel_lab.launch_geometry(12)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_every_block_sums_the_packet_in_the_kernel_order(cluster):
+    """Each block of a packet's cluster sums the whole packet's d as the
+    kernel's prologue does: its threads take the old min(rows*128, 1024)
+    virtual threads vt = tid, tid + T, ..., each summing its lanes in lane
+    order, then the halving tree with the same loop. Every block gets
+    packet_neg's signs, bit for bit."""
+    rs = np.random.RandomState(5)
+    for rows in kernel_lab.ROWS:
+        P = rows * 128
+        try:
+            C, T = kernel_lab.launch_geometry(rows, cluster)
+        except ValueError:
+            continue
+        d = rs.randn(2, P, 3).astype(np.float32) * rs.choice([1e-3, 1.0, 1e3], (2, P, 1))
+        d = d.astype(np.float32)
+        want = kernel_lab.packet_neg(torch.as_tensor(d), rows).numpy()
+        V = min(P, 1024)
+        for p in range(2):
+            for _rank in range(C):  # every block repeats the same sums
+                red = np.zeros((V, 3), np.float32)
+                for tid in range(T):
+                    for vt in range(tid, V, T):
+                        s = d[p, vt].copy()
+                        for i in range(1, P // V):
+                            s = (s + d[p, vt + i * V]).astype(np.float32)
+                        red[vt] = s
+                h = V // 2
+                while h:
+                    for tid in range(T):
+                        for vt in range(tid, h, T):
+                            red[vt] = (red[vt] + red[vt + h]).astype(np.float32)
+                    h //= 2
+                np.testing.assert_array_equal(red[0] < 0, want[p])
+
+
+def test_forced_cluster_is_checked_on_the_cpu(tables, ray_batch):
+    """The plain walk takes no geometry: a forced cluster that a packet of
+    `rows` can have gives the same result; one it cannot raises."""
+    o, d, t_max = map(torch.from_numpy, ray_batch)
+    ref = kernel_lab.lab_traverse(*tables[1], o, d, t_max, rows=8, count=True)
+    out = kernel_lab.lab_traverse(*tables[1], o, d, t_max, rows=8, count=True, cluster=2)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    with pytest.raises(ValueError, match="cluster"):
+        kernel_lab.lab_traverse(*tables[1], o, d, t_max, rows=32, cluster=4)
+    with pytest.raises(ValueError, match="cluster"):
+        kernel_lab.brless_traverse(*tables[1], o, d, t_max, rows=8, cluster=3)
+
+
+def test_source_specs_and_variants():
+    assert kernel_lab.parse_source("pr7=build/ab/kernel_lab.cu:block") == (
+        "pr7", "build/ab/kernel_lab.cu", True)
+    assert kernel_lab.parse_source("tree=nn_bvh_tpu_torch/csrc/kernel_lab.cu") == (
+        "tree", "nn_bvh_tpu_torch/csrc/kernel_lab.cu", False)
+    with pytest.raises(ValueError, match="signature"):
+        kernel_lab.parse_source("x=a.cu:cluster")
+    kinds = [k for k, _ in kernel_lab.VARIANTS.values()]
+    assert kinds.count("lab_traverse") == 7 and kinds.count("brless_traverse") == 2
+    assert all(kw["rows"] in kernel_lab.ROWS for _, kw in kernel_lab.VARIANTS.values())
