@@ -12,7 +12,8 @@ points, once per traversal backend, and checks it:
    limit;
 2. build: compiles the three traversal sources and the lab's of csrc/ with
    nvcc, one process each, all at once; prints their ptxas register / spill
-   lines and fails if any kernel spills;
+   lines and fails if any kernel spills (the lab's floor and its probe
+   too);
 3. BVH4 kernel vs plain: closest-hit and any-hit on 160,000 camera rays and
    160,000 incoherent rays (20% dead lanes), through the CUDA kernel and the
    plain torch traversal, under the kernels' contract
@@ -62,8 +63,21 @@ points, once per traversal backend, and checks it:
    box and triangle tests counted by the plain version on that batch (every
    lane's box test per packet visit, the triangle tests masked in), o and d
    for every lane (dead lanes vote in a packet);
-12. the three floor_bench variants at n_iter = 20,000 against their plain
-   versions, bit for bit, in ns per iteration, each with its bound;
+12. the loop-floor probe, one packet a cluster as the lab's packets are:
+   the three floor_bench variants (stack only,
+   +load, +slab) at n_iter = 20,000 at each geometry of
+   kernel_lab.FLOOR_GEOMETRIES (rows 32 at the lab's cluster of 8 blocks of
+   512 threads; rows 4 as one block of 512; rows 4 as 8 blocks of 64), bit
+   for bit against floor_bench_plain, in ns an iteration (the mean of two
+   medians of 5); each with its bound by bytes or FLOPs and its chain
+   estimate: 20,000 times the cycles of the pieces on the variant's chain
+   of dependences (kernel_lab.floor_cycles: each piece timed alone by
+   clock64 on the card; kernel_lab.floor_chain) at the SM clock nvidia-smi
+   prints while the card spins, and its share of the kernel's time (above
+   100% where the pieces overlap in the kernel); then a lab visit split
+   by the floor's steps at rows 32 (stack and barrier, record load and
+   publication, vote) beside phase 11's microseconds per visit of the
+   longest packet without and with leaf tests;
 13. the nine traversal batches of one bench wave (sample 0 through the
    default cuda_bvh4 intersectors, recorded as trace_wave hands them over,
    in its lane order, as bench_scene.wave_batches does; launch counts reset
@@ -109,9 +123,6 @@ LAB_REPLACES = {"lab_traverse": "tools/perf/kernel_lab.py:202",
                 "brless_traverse": "tools/perf/kernel_lab.py:360",
                 "floor_bench": "tools/perf/kernel_lab.py:434"}
 LAB_R = 65536
-FLOOR_VARIANTS = {"floor: stack only": (False, False), "floor: +load+extract": (True, False),
-                  "floor: +slab+any": (True, True)}
-FLOOR_ITERS = 20000
 FLOPS_FLOOR_SLAB = 6  # per lane: 2 sub, min, max, mul, compare
 
 
@@ -424,6 +435,7 @@ def phase_lab_variants(torch, sc, dbvh, cam, dev):
              "brless_traverse": kernel_lab.brless_traverse_plain}
     rows = {}
     ms_binary = {}
+    visit_us = {}  # bounce class: us per visit of the longest packet, by variant
     for cls, (o, d, t_max) in rays.items():
         live = (t_max > 0).cpu()
         ref = isect.closest(o, d, t_max)
@@ -465,6 +477,8 @@ def phase_lab_variants(torch, sc, dbvh, cam, dev):
                     visits = int(lab_counts["slab"].max()) // (r * 128)
             if visits:
                 line += f", {ms * 1e3 / visits:.3f} us per visit of the longest packet ({visits})"
+                if cls == "bounce":
+                    visit_us[tag] = ms * 1e3 / visits
             if timed:
                 flops, nbytes, work = lab_bound(lab_counts, LAB_R, out[0].numel(), table_bytes)
                 bound, by = bound_of(flops, nbytes)
@@ -474,27 +488,73 @@ def phase_lab_variants(torch, sc, dbvh, cam, dev):
                          f"{work}, {flops} FLOPs, {nbytes} bytes)")
             print(line, flush=True)
 
-    ox = rays["bounce"][0][:, 0].repeat(2).contiguous()
-    for tag, (wl, ws) in FLOOR_VARIANTS.items():
-        kw = dict(n_iter=FLOOR_ITERS, with_load=wl, with_slab=ws)
-        out = kernel_lab.floor_bench(nodes, ox, **kw)
-        plain_ms, want = event_ms(torch, lambda: kernel_lab.floor_bench_plain(nodes, ox, **kw))
-        check(bool(torch.equal(out, want)), f"{tag}: differs from the plain version")
-        ms = median_ms(lambda: kernel_lab.floor_bench(nodes, ox, **kw))
-        lanes = out.numel()
-        addr = kernel_lab.floor_addr(kernel_lab.floor_nodes(FLOOR_ITERS))
-        rec_bytes = int(addr.unique().numel()) * 32 if wl else 0
-        flops = FLOOR_ITERS * lanes * FLOPS_FLOOR_SLAB if ws else (FLOOR_ITERS + lanes
-                                                                   if wl else 0)
-        nbytes = rec_bytes + lanes * 4 * (2 if ws else 1)
-        bound, by = bound_of(flops, nbytes)
-        print(f"phase 12: {tag:20s} {ms * 1e6 / FLOOR_ITERS:8.2f} ns/iter ({ms:.4f} ms, median "
-              f"of 5), plain {plain_ms:.1f} ms, bit-equal, out {float(out[0, 0])}; bound "
-              f"{bound:.3g} ms ({by}; {flops} FLOPs, {nbytes} bytes)", flush=True)
-        if wl and not ws:
-            rows["floor_bench"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                                   "bound_by": by, "max_abs_err": 0.0}
+    rows["floor_bench"] = phase_floor(torch, nodes, kernel_lab.floor_ox(rays), visit_us)
     return rows
+
+
+def floor_bound(rows, with_load, with_slab, n_iter):
+    """Phase 12's bound of one floor call (FLOPs and bytes of its inputs and
+    output) -> (ms, by, FLOPs, bytes): the slab test on every lane each
+    iteration, or one add a lane at the end and one a record; the distinct
+    records read, ox where the slab reads it, the output."""
+    from nn_bvh_tpu_torch.tools import kernel_lab
+    from nn_bvh_tpu_torch.tools.bench_scene import bound_of
+
+    lanes = rows * 128
+    addr = kernel_lab.floor_addr(kernel_lab.floor_nodes(n_iter))
+    rec_bytes = int(addr.unique().numel()) * 32 if with_load else 0
+    flops = n_iter * lanes * FLOPS_FLOOR_SLAB if with_slab else (n_iter + lanes
+                                                                 if with_load else 0)
+    nbytes = rec_bytes + lanes * 4 * (2 if with_slab else 1)
+    return (*bound_of(flops, nbytes), flops, nbytes)
+
+
+def phase_floor(torch, nodes, ox, visit_us):
+    """Phase 12: the floor sweep (kernel_lab.floor_sweep: every variant at
+    every geometry of FLOOR_GEOMETRIES, bit for bit against the plain
+    version), the pieces of an iteration (floor_cycles) and each variant's
+    chain estimate at the SM clock, the split of a lab visit -> the
+    floor_bench row of the kernels line."""
+    from nn_bvh_tpu_torch.tools import kernel_lab as kl
+    from nn_bvh_tpu_torch.tools.bench_scene import _sleep_cycles_per_ms
+
+    sweep = kl.floor_sweep({"kernel": kl.floor_bench}, nodes, ox)
+    clock = kl.sm_clock_mhz()
+    print(f"phase 12: SM clock {clock:.0f} MHz (nvidia-smi clocks.sm while the card spins; "
+          f"torch.cuda._sleep's clock64 rate {_sleep_cycles_per_ms() / 1e3:.0f} MHz)")
+    n_iter = kl.FLOOR_ITERS
+    row = None
+    ns = {}
+    for geo, (rows, cluster) in kl.FLOOR_GEOMETRIES.items():
+        kl.floor_cycles(nodes, rows, cluster)  # a warm-up
+        pieces = kl.floor_cycles(nodes, rows, cluster)
+        chain = kl.floor_chain(pieces)
+        print(f"phase 12: floor {geo}, cluster/threads {kl.launch_geometry(rows, cluster)}: "
+              "cycles a step, each piece alone (floor_cycles, clock64, 1,000 steps): "
+              + ", ".join(f"{p} {c:.1f}" for p, c in pieces.items()), flush=True)
+        for variant, (wl, ws) in kl.FLOOR_VARIANTS.items():
+            times = sweep[(variant, geo)]["kernel"]
+            ms = sum(times) / len(times)
+            ns[(variant, geo)] = kl.ns_per_iter(times)
+            bound, by, flops, nbytes = floor_bound(rows, wl, ws, n_iter)
+            chain_ms = n_iter * chain[variant] / (clock * 1e3)
+            print(f"phase 12: floor {variant:10s} {geo:16s} {ns[(variant, geo)]:8.2f} ns/iter "
+                  f"({'/'.join(f'{x:.4f}' for x in times)} ms), bit-equal to plain; bound "
+                  f"{bound:.6f} ms ({by}; {flops} FLOPs, {nbytes} bytes); chain estimate "
+                  f"{chain_ms:.4f} ms ({chain[variant]:.1f} cycles an iteration), "
+                  f"{chain_ms / ms:.1%} of the kernel's time", flush=True)
+            if geo == "rows=32" and variant == "+load":
+                plain_ms, _ = event_ms(torch, lambda: kl.floor_bench_plain(nodes, ox, n_iter,
+                                                                             wl, ws))
+                row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                       "max_abs_err": 0.0}
+    stack, load, slab = (ns[(v, "rows=32")] for v in kl.FLOOR_VARIANTS)
+    print(f"phase 12: a lab visit at rows 32 by the floor: stack and barrier {stack:.2f} ns, "
+          f"record load and publication {load - stack:.2f} ns, vote {slab - load:.2f} ns "
+          f"(+slab {slab:.2f} ns); the lab's visit of the longest packet (phase 11, bounce): "
+          f"{visit_us['lab rows=32 no leaf']:.3f} us without leaf tests, "
+          f"{visit_us['lab rows=32 k=1']:.3f} us with them")
+    return row
 
 
 def main() -> int:

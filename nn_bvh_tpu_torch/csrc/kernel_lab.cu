@@ -7,7 +7,9 @@
 // - brless_traverse (make_brless_kernel, kernel_lab.py:244-356): entry
 //   brless_traverse;
 // - floor_bench (make_floor_kernel, kernel_lab.py:400-430): entry
-//   floor_bench.
+//   floor_bench, one packet laid out as the traversals lay it out, each
+//   variant one more piece of a visit. Entry floor_cycles times those
+//   pieces alone (a probe of this card, with no TPU counterpart).
 //
 // What the two traversals compute is a packet walk: a packet of rows*128
 // lanes has one 64-entry stack and one walk order; a node is visited when any
@@ -68,7 +70,6 @@ namespace {
 constexpr int kStack = 64;
 constexpr int kMaxLeaf = 8;
 constexpr int kMaxPop = 4;
-constexpr int kMaxThreads = 1024;  // floor_bench's block
 constexpr int kBlockThreads = 512;  // a packet block's most threads
 constexpr int kMaxCluster = 8;
 constexpr int kSignThreads = 1024;  // the summation order's threads
@@ -146,6 +147,13 @@ __device__ __forceinline__ void st_async(uint32_t addr, uint32_t value, uint32_t
                : "memory");
 }
 
+// Thread 0 sets the block's three mbarriers (votes, record), one arrival
+// each, visible to the cluster; peers may use them after a cluster sync.
+__device__ __forceinline__ void init_mbarriers(PacketShared& s) {
+  for (int i = 0; i < 3; ++i) mbar_init(&s.bar[i], 1);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
 // The geometry of this block in its packet's cluster: one lane a thread.
 struct Geo {
   int C, rank, T, tid;
@@ -174,8 +182,9 @@ __device__ __forceinline__ Geo geometry() {
 // block waits on its own mbarrier (phase (v>>1)&1) and ORs its C slots. No
 // cluster barrier: a fast block can be at most one vote ahead of a slow one
 // (it waits for the slow one's bit), so two sets of slots and mbarriers do.
-__device__ __forceinline__ bool cluster_any(bool h, PacketShared& s, const Geo& g, int v) {
-  const bool b = __syncthreads_or(h);
+// vote_exchange is the part after the block's OR b (floor_cycles also
+// times it alone, on warp 0).
+__device__ __forceinline__ bool vote_exchange(bool b, PacketShared& s, const Geo& g, int v) {
   const int p = v & 1;
   if (g.tid == 0) mbar_expect_tx(&s.bar[p], 4u * g.C);
   if (g.tid < g.C)
@@ -186,6 +195,10 @@ __device__ __forceinline__ bool cluster_any(bool h, PacketShared& s, const Geo& 
   bool any = false;
   for (int r = 0; r < g.C; ++r) any |= slot[r] != 0u;
   return any;
+}
+
+__device__ __forceinline__ bool cluster_any(bool h, PacketShared& s, const Geo& g, int v) {
+  return vote_exchange(__syncthreads_or(h), s, g, v);
 }
 
 // This thread's lane.
@@ -203,8 +216,7 @@ __device__ bool prologue(Lane& L, PacketShared& s, const Geo& g, const float* __
                          bool neg[3]) {
   if (g.tid == 0) {
     s.stack[0] = 0;
-    for (int i = 0; i < 3; ++i) mbar_init(&s.bar[i], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    init_mbarriers(s);
   }
   L.ray = trav::load_ray(o, d, g.lane);
   L.t = t_max[g.lane];
@@ -256,21 +268,30 @@ __device__ __forceinline__ trav::Tri staged_tri(const float* v) {
           make_float4(v[6] - x0, v[7] - y0, v[8] - z0, 0.f)};
 }
 
-// The node record a visit reads. vec: every thread loads it; else thread 0
-// loads it and publishes it in shared memory through the record mbarrier
-// (s.rec is rewritten only after this visit's vote, which every thread
-// reaches after reading it).
-__device__ __forceinline__ NodeRec visit_record(const float4* __restrict__ nodes, int node,
-                                                bool vec, PacketShared& s, const Geo& g,
-                                                uint32_t& nrec) {
-  if (vec) return load_node(nodes, node);
+// Thread 0 makes a record (make()) and publishes it in shared memory
+// through the record mbarrier; every thread waits for it -> the record.
+// The caller rewrites s.rec only after a barrier that every thread reaches
+// after reading it. nrec counts the records published.
+template <class Make>
+__device__ __forceinline__ NodeRec publish(PacketShared& s, const Geo& g, uint32_t& nrec,
+                                           Make make) {
   if (g.tid == 0) {
-    s.rec = load_node(nodes, node);
+    s.rec = make();
     mbar_arrive(&s.bar[2]);
   }
   mbar_wait(&s.bar[2], nrec & 1u);
   ++nrec;
   return s.rec;  // mbar_wait is a compiler barrier: read after it
+}
+
+// The node record a visit reads. vec: every thread loads it; else thread 0
+// loads it and publishes it (s.rec is rewritten only after this visit's
+// vote, which every thread reaches after reading it).
+__device__ __forceinline__ NodeRec visit_record(const float4* __restrict__ nodes, int node,
+                                                bool vec, PacketShared& s, const Geo& g,
+                                                uint32_t& nrec) {
+  if (vec) return load_node(nodes, node);
+  return publish(s, g, nrec, [&] { return load_node(nodes, node); });
 }
 
 // make_lab_kernel: pops up to k_pop entries, visits them in order (a popped
@@ -444,51 +465,159 @@ brless_kernel(const float4* __restrict__ nodes, const float* __restrict__ tris,
   cg::this_cluster().sync();
 }
 
-// make_floor_kernel: one block, n_iter iterations of a stack write, a stack
-// read and, with kLoad, a node load whose address depends on that read;
-// kSlab runs a toy slab test on every lane and votes. The stack is zeroed
-// first (the reference reads slots it has not written yet).
-template <int LPT, bool kLoad, bool kSlab>
-__global__ void __launch_bounds__(kMaxThreads)
-floor_kernel(const float4* __restrict__ nodes, const float* __restrict__ ox,
-             int n_iter, float* __restrict__ out) {
-  __shared__ int stack[kFloorSlots];
-  const int tid = threadIdx.x, B = blockDim.x;
-  float x[LPT];
-#pragma unroll
-  for (int i = 0; i < LPT; ++i) x[i] = ox[tid + i * B];
-  if (tid < kFloorSlots) stack[tid] = 0;
-  __syncthreads();
+// make_floor_kernel, laid out as one lab packet: a cluster of C blocks of
+// T threads, one lane a thread (launch_geometry), every block with its own
+// 32-slot stack, zeroed first (the reference reads slots it has not
+// written). Each variant adds one piece of a lab visit:
+// - stack only: thread 0 writes slot it % 32, every thread reads slot
+//   (7*it+3) % 32. The read feeds nothing (in the JAX kernel as here), so
+//   the variant times the write and the barrier;
+// - kLoad: thread 0 loads the record at the reference's address of the
+//   node it read and publishes it to its block through the record mbarrier
+//   (visit_record, the lab's default way, not vec); every lane adds lo.x;
+// - kSlab: every lane's toy slab test on the record feeds the packet's vote
+//   (cluster_any, the lab's); the vote adds hit * 0 to it.
+// One block barrier an iteration, at its end: __syncthreads, or in kSlab
+// the vote's own block OR. The slot read at iteration it was last written
+// 1 to 31 iterations earlier (6*it+3 is odd mod 32: never the slot written
+// at it), so an earlier iteration's barrier orders the write before the
+// read; the next write of that slot, and thread 0's next record, come after
+// this iteration's barrier, which every thread reaches after its reads.
+// kLoad adds the record's mbarrier phase, kSlab the vote's exchange between
+// the blocks (their only link: without kSlab each block runs alone).
+template <bool kLoad, bool kSlab>
+__global__ void __launch_bounds__(kBlockThreads)
+floor_kernel(const float4* __restrict__ nodes, const float* __restrict__ ox, int n_iter,
+             float* __restrict__ out) {
+  __shared__ PacketShared s;
+  const Geo g = geometry();
+  const float x = ox[g.lane];
+  if (g.tid < kFloorSlots) s.stack[g.tid] = 0;
+  if (g.tid == 0) init_mbarriers(s);
+  cg::this_cluster().sync();  // the stacks zeroed, every peer's mbarriers set
   float acc = 0.f;
+  uint32_t nrec = 0;  // records published
   int it = 0;
   while (it < n_iter) {
-    if (tid == 0) stack[it % kFloorSlots] = it;
-    __syncthreads();
-    const int node = stack[(it * 7 + 3) % kFloorSlots];
+    if (g.tid == 0) s.stack[it % kFloorSlots] = it;
+    const int node = s.stack[(it * 7 + 3) % kFloorSlots];
     if (kLoad) {
       // the reference's address: block of node % 17000, lane of node
       const int addr = ((node % kFloorWrap) / 128) * 128 + node % 128;
-      const float4 a = __ldg(nodes + 2 * (size_t)addr);
+      const NodeRec n = visit_record(nodes, addr, false, s, g, nrec);
       if (kSlab) {
-        bool h = false;
-#pragma unroll
-        for (int i = 0; i < LPT; ++i) {
-          const float t0 = a.x - x[i], t1 = a.w - x[i];
-          h |= fminf(t0, t1) < fmaxf(t0, t1) * 0.9f;
-        }
-        it += __syncthreads_or(h) * 0;
+        const float t0 = n.a.x - x, t1 = n.a.w - x;
+        it += cluster_any(fminf(t0, t1) < fmaxf(t0, t1) * 0.9f, s, g, it) * 0;
       } else {
-        acc = acc + a.x;
+        acc = acc + n.a.x;
       }
     }
+    if (!kSlab) __syncthreads();
     it += 1;
-    __syncthreads();  // every read of this iteration before the next write
   }
-#pragma unroll
-  for (int i = 0; i < LPT; ++i) out[tid + i * B] = acc + (float)it;
+  out[g.lane] = acc + (float)it;
+  cg::this_cluster().sync();  // no block leaves while a peer may still write to it
 }
 
-int threads_for(int rows) { return rows * 128 < kMaxThreads ? rows * 128 : kMaxThreads; }
+// Cycles (clock64) of `reps` steps of `step`, a chain: each step waits for
+// the one before.
+template <class Step>
+__device__ __forceinline__ long long chain_cycles(int reps, Step step) {
+  const long long t0 = clock64();
+#pragma unroll 4
+  for (int i = 0; i < reps; ++i) step(i);
+  return clock64() - t0;
+}
+
+// The pieces of a floor iteration, each timed alone as a chain of `reps`
+// steps by thread 0 of rank 0 (chain_cycles) in one cluster of the floor's
+// geometry. A measurement probe, not a port: it has no plain version.
+// out[k], the cycles of piece k (kernel_lab.FLOOR_PIECES), written as each
+// is timed:
+// 0 st_bar: thread 0 writes a stack slot, then __syncthreads;
+// 1 bar: __syncthreads alone;
+// 2 ld: thread 0's dependent shared loads (a 32-slot cycle);
+// 3 ldg: thread 0's dependent record loads at the floor's first `reps`
+//   addresses (the next waits for the last value), L2 hits where the
+//   floor has run;
+// 4 pub_bar: the publication of a record (publish), then __syncthreads;
+// 5 pub_vote: the publication, then cluster_any on the record;
+// 6 or: __syncthreads_or alone;
+// 7 xchg: vote_exchange alone, on warp 0 of every block (on every thread,
+//   with no block OR between votes, a fast warp could complete an
+//   mbarrier's next phase before a slow one saw the last);
+// 8 vote: cluster_any (the block OR, then the exchange).
+// out[9] = 0, the dependences' sum (`zero` is 0: it keeps each chain
+// dependent without changing an address).
+__global__ void __launch_bounds__(kBlockThreads)
+floor_cycles_kernel(const float4* __restrict__ nodes, int reps, int zero,
+                    long long* __restrict__ out) {
+  __shared__ PacketShared s;
+  const Geo g = geometry();
+  if (g.tid == 0) init_mbarriers(s);
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  const bool timer = g.rank == 0 && g.tid == 0;
+  int dep = 0;
+  uint32_t nrec = 0;
+  float r = 0.f;
+  // thread 0's record i, made to depend on the last one read (r)
+  auto rec_i = [&](int i) {
+    const float a = __int_as_float(i + (__float_as_int(r) & zero));
+    return NodeRec{make_float4(a, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  };
+  long long c = chain_cycles(reps, [&](int i) {
+    if (g.tid == 0) s.stack[i % kFloorSlots] = i;
+    __syncthreads();
+  });
+  if (timer) out[0] = c;
+  c = chain_cycles(reps, [&](int) { __syncthreads(); });
+  if (timer) out[1] = c;
+  if (g.tid == 0) {
+    for (int i = 0; i < kFloorSlots; ++i) s.stack[i] = (i + 1) % kFloorSlots;
+    const volatile int* st = s.stack;
+    int k = 0;
+    c = chain_cycles(reps, [&](int) { k = st[k]; });
+    if (timer) out[2] = c;
+    float x = 0.f;
+    c = chain_cycles(reps, [&](int i) {
+      int node = i - ((i - (7 * i + 3) % kFloorSlots) & (kFloorSlots - 1));  // floor_nodes
+      node = max(node, 0);
+      const int addr = ((node % kFloorWrap) / 128) * 128 + node % 128;
+      x = __ldg(nodes + 2 * (size_t)(addr + (__float_as_int(x) & zero))).x;
+    });
+    if (timer) out[3] = c;
+    dep += (k & zero) + (__float_as_int(x) & zero);
+  }
+  __syncthreads();
+  c = chain_cycles(reps, [&](int i) {
+    r = publish(s, g, nrec, [&] { return rec_i(i); }).a.x;
+    __syncthreads();
+  });
+  if (timer) out[4] = c;
+  c = chain_cycles(reps, [&](int i) { dep += __syncthreads_or((g.lane + i) & 1) & zero; });
+  if (timer) out[6] = c;
+  cl.sync();
+  if (g.tid < 32) {
+    c = chain_cycles(reps, [&](int i) {
+      __syncwarp();  // the warp's reads of a slot set before its next bit goes out
+      dep += vote_exchange((g.lane + i) & 1, s, g, i) & zero;  // votes 0..reps-1
+    });
+    if (timer) out[7] = c;
+  }
+  cl.sync();
+  c = chain_cycles(reps,
+                   [&](int i) { dep += cluster_any((g.lane + i) & 1, s, g, reps + i) & zero; });
+  if (timer) out[8] = c;
+  c = chain_cycles(reps, [&](int i) {
+    r = publish(s, g, nrec, [&] { return rec_i(i); }).a.x;
+    dep += cluster_any(r < 0.f, s, g, 2 * reps + i) & zero;
+  });
+  if (timer) out[5] = c;
+  dep += __float_as_int(r) & zero;
+  if (timer) out[9] = dep;
+  cl.sync();  // no block leaves while a peer may still write to it
+}
 
 // A packet's launch geometry is usable: `cluster` blocks of `threads`
 // threads, one lane each, hold the packet's rows*128 lanes.
@@ -560,24 +689,26 @@ extern "C" int brless_traverse(const void* nodes, const void* tris, const void* 
                          static_cast<int*>(overflow));
 }
 
-// One block; ox holds at least rows*128 floats, out (rows*128).
-extern "C" int floor_bench(const void* nodes, const void* ox, int rows, int n_iter,
-                           int with_load, int with_slab, void* out, void* stream) {
-  const int B = threads_for(rows), lpt = rows * 128 / B;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* nd = static_cast<const float4*>(nodes);
-  auto* px = static_cast<const float*>(ox);
-  auto* po = static_cast<float*>(out);
-#define FLOOR_LAUNCH(LPT)                                                    \
-  do {                                                                       \
-    if (!with_load) floor_kernel<LPT, false, false><<<1, B, 0, s>>>(nd, px, n_iter, po); \
-    else if (!with_slab) floor_kernel<LPT, true, false><<<1, B, 0, s>>>(nd, px, n_iter, po); \
-    else floor_kernel<LPT, true, true><<<1, B, 0, s>>>(nd, px, n_iter, po); \
-  } while (0)
-  if (lpt == 1) FLOOR_LAUNCH(1);
-  else if (lpt == 2) FLOOR_LAUNCH(2);
-  else if (lpt == 4) FLOOR_LAUNCH(4);
-  else return static_cast<int>(cudaErrorInvalidValue);
-#undef FLOOR_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+// One packet: a cluster of `cluster` blocks of `threads` threads, one lane
+// each (tools/kernel_lab.py::launch_geometry); ox holds at least rows*128
+// floats, out rows*128.
+extern "C" int floor_bench(const void* nodes, const void* ox, int rows, int cluster,
+                           int threads, int n_iter, int with_load, int with_slab, void* out,
+                           void* stream) {
+  if (!geometry_ok(rows, cluster, threads)) return static_cast<int>(cudaErrorInvalidValue);
+  auto* kernel = !with_load ? &floor_kernel<false, false>
+                 : !with_slab ? &floor_kernel<true, false> : &floor_kernel<true, true>;
+  return launch_clusters(kernel, 1, cluster, threads, static_cast<cudaStream_t>(stream),
+                         static_cast<const float4*>(nodes), static_cast<const float*>(ox),
+                         n_iter, static_cast<float*>(out));
+}
+
+// floor_cycles_kernel in one cluster of the floor's geometry; out (10,) int64.
+extern "C" int floor_cycles(const void* nodes, int rows, int cluster, int threads, int reps,
+                            void* out, void* stream) {
+  if (!geometry_ok(rows, cluster, threads) || reps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_clusters(floor_cycles_kernel, 1, cluster, threads,
+                         static_cast<cudaStream_t>(stream), static_cast<const float4*>(nodes),
+                         reps, 0, static_cast<long long*>(out));
 }

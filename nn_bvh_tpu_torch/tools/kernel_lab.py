@@ -1,7 +1,7 @@
 """Traversal kernel lab on the CUDA card (port of tools/perf/kernel_lab.py).
 
     python -m nn_bvh_tpu_torch.tools.kernel_lab [--quick]
-    python -m nn_bvh_tpu_torch.tools.kernel_lab --source LABEL=PATH[:block] ... [--quick]
+    python -m nn_bvh_tpu_torch.tools.kernel_lab --source LABEL=PATH[:ABI] ... [--quick]
         [--json PATH]
 
 Three packet kernels (csrc/kernel_lab.cu), each with its plain torch twin in
@@ -22,7 +22,12 @@ the lab's own tables (`lab_tables`: node records of
   clamped indices, masked; unconditional pushes. Its counters are zero, as
   the reference never writes them.
 - `floor_bench`: a loop-floor probe on one packet: `n_iter` dependent stack
-  reads, node loads and toy slab votes.
+  reads, node loads and toy slab votes. On the card the packet is laid out
+  as the traversals lay it out (a cluster, `launch_geometry`), so each
+  variant (`FLOOR_VARIANTS`) adds one piece of a lab visit: the stack and
+  its barrier, the record's load and publication, the vote.
+  `floor_cycles` times those pieces alone (clock64; a probe with no plain
+  version) and `floor_chain` sums the ones on each variant's chain.
 
 Returns are the JAX functions', padded the same way (o = 0, d = 1,
 t_max = -1 on padding lanes, which vote like any other): `t, prim, cnt, cnt2`
@@ -33,22 +38,26 @@ plain version for CPU tensors; each launch adds one to
 
 The harness (`main`) runs what the JAX `main` runs, in its order, on the
 bench scene: the status-quo kernel per ray class without and with counters,
-the three floor variants at n_iter = 20,000 (ns/iter), the two branchless
+the three floor variants at n_iter = 20,000 at each geometry of
+`FLOOR_GEOMETRIES` (ns/iter; `floor_sweep`), the two branchless
 variants per class. `--quick` keeps the bounce class. Times are CUDA events,
 the median of 5 calls after a warm-up. It needs a card and exits 1 without
 one; the last line of standard output is one JSON object with every number,
 the card's name and nvidia-smi's name and power limit.
 
-With `--source`, the harness times the two packet traversals of several
-sources of csrc/kernel_lab.cu side by side instead: each PATH is built once
+With `--source`, the harness times the packet kernels of several sources
+of csrc/kernel_lab.cu side by side instead: each PATH is built once
 (`bvh4_ab.build_sources`: kernels.NVCC_FLAGS, `-I` csrc/ and the source's
 own directory) and its ptxas report printed; `:block` marks a source whose
 entries take no launch geometry (one packet per block, as up to commit
-f002d054). For each class and each of `VARIANTS`, every source runs in
-turns (A B ... B A; `timeit` each), its outputs must equal the first
-source's bit for bit (t, prim, cnt, cnt2), and the line gives each source's
-two medians, its cluster geometry and, with counters, the microseconds per
-visit of the longest packet (ms / max cnt). --json PATH writes the report.
+f002d054), `:floor-block` one whose floor_bench alone takes none (one
+block, as up to commit 9a6320c6). For each class and each of `VARIANTS`,
+every source runs in turns (A B ... B A; `timeit` each), its outputs must
+equal the first source's bit for bit (t, prim, cnt, cnt2), and the line
+gives each source's two medians, its cluster geometry and, with counters,
+the microseconds per visit of the longest packet (ms / max cnt). Then
+`floor_sweep` over the sources' floor_bench, each held to the plain
+version, in ns an iteration. --json PATH writes the report.
 """
 
 from __future__ import annotations
@@ -89,18 +98,30 @@ FLOOR_WRAP = 17000
 # record 17,023: the 133 blocks of 128 records that 17,000 wrapped indices span
 FLOOR_MIN_NODES = -(-FLOOR_WRAP // LANES) * LANES
 FLOOR_SLOTS = 32
+FLOOR_ITERS = 20000
+FLOOR_VARIANTS = {"stack only": (False, False), "+load": (True, False), "+slab": (True, True)}
+# the floor's sweep: the lab's packet (rows 32: 8 blocks of 512 threads),
+# one block of 512 threads (the block OR, no exchange between blocks), 8
+# blocks of 64 (the exchange with a cheap OR)
+FLOOR_GEOMETRIES = {"rows=32": (32, None), "rows=4 cluster=1": (4, 1),
+                    "rows=4 cluster=8": (4, 8)}
+# floor_cycles' pieces, in the order of its output
+FLOOR_PIECES = ("st_bar", "bar", "ld", "ldg", "pub_bar", "pub_vote", "or", "xchg", "vote")
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _ARGTYPES = {
     "lab_traverse": [_VP] * 5 + [_INT] * 8 + [_VP] * 6,
     "brless_traverse": [_VP] * 5 + [_INT] * 6 + [_VP] * 6,
-    "floor_bench": [_VP, _VP] + [_INT] * 4 + [_VP, _VP],
+    "floor_bench": [_VP, _VP] + [_INT] * 6 + [_VP, _VP],
+    "floor_cycles": [_VP] + [_INT] * 4 + [_VP, _VP],
 }
 # the entries of a source with one packet per block (commit f002d054 and
-# earlier): no cluster and threads arguments
+# earlier; floor_bench also at commit 9a6320c6): no cluster and threads
+# arguments
 _BLOCK_ARGTYPES = {"lab_traverse": [_VP] * 5 + [_INT] * 6 + [_VP] * 6,
-                   "brless_traverse": [_VP] * 5 + [_INT] * 4 + [_VP] * 6}
+                   "brless_traverse": [_VP] * 5 + [_INT] * 4 + [_VP] * 6,
+                   "floor_bench": [_VP, _VP] + [_INT] * 4 + [_VP, _VP]}
 
 
 class StackOverflow(ValueError):
@@ -459,21 +480,87 @@ def _check_cluster(rows, cluster):
         launch_geometry(rows, cluster)
 
 
-def floor_bench(nodes, ox, n_iter=5000, with_load=False, with_slab=False, rows=32):
+def floor_bench(nodes, ox, n_iter=5000, with_load=False, with_slab=False, rows=32,
+                cluster=None):
     """nodes (Nn, 8) f32 with Nn >= FLOOR_MIN_NODES, ox (>= rows*128,) f32
-    -> (rows, 128) f32, every lane acc + n_iter."""
+    -> (rows, 128) f32, every lane acc + n_iter. On the card the probe is
+    one packet laid out as the traversals lay it out, a cluster of
+    `launch_geometry` blocks; `cluster` forces its size as there, which
+    changes no result. A cluster launch that the card refuses raises."""
     if ox.device.type == "cpu":
+        _check_cluster(rows, cluster)
         return floor_bench_plain(nodes, ox, n_iter, with_load, with_slab, rows)
+    return _launch_floor(_entry("floor_bench"), "floor_bench", nodes, ox, n_iter, with_load,
+                         with_slab, rows, cluster)
+
+
+def _launch_floor(fn, name, nodes, ox, n_iter, with_load, with_slab, rows, cluster=None):
+    """Check the tensors, launch `fn` (the C entry floor_bench; cluster=
+    "block": an entry of one block, which takes no geometry) -> (rows,
+    128). Launches count under `name`."""
     _check_floor(nodes, ox, rows)
+    geo = () if cluster == "block" else launch_geometry(rows, cluster)
     out = torch.empty((rows, LANES), dtype=torch.float32, device=ox.device)
     with torch.cuda.device(ox.device):
         stream = torch.cuda.current_stream(ox.device).cuda_stream
-        rc = _entry("floor_bench")(nodes.data_ptr(), ox.data_ptr(), rows, n_iter,
-                                   int(with_load), int(with_slab), out.data_ptr(), stream)
+        rc = fn(nodes.data_ptr(), ox.data_ptr(), rows, *geo, n_iter, int(with_load),
+                int(with_slab), out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"floor_bench launch failed: cudaError {rc}")
-    kernel_launch.n_launches["floor_bench"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    kernel_launch.n_launches[name] += 1
     return out
+
+
+def floor_cycles(nodes, rows=32, cluster=None, reps=1000) -> dict:
+    """The pieces of a floor iteration, each timed alone on the card by
+    clock64 as a chain of `reps` steps in one cluster of the floor's
+    geometry (csrc/kernel_lab.cu::floor_cycles_kernel says what each is) ->
+    {piece of FLOOR_PIECES: cycles a step}. Its record loads are L2 hits
+    once the floor has read the table. A probe of the card, with no plain
+    version: CPU tensors raise. Launches count as "floor_cycles"."""
+    if nodes.device.type != "cuda":
+        raise ValueError(f"floor_cycles measures the card; nodes is on {nodes.device}")
+    kernel_launch.check("nodes", nodes, (None, 8), nodes.device)
+    if nodes.shape[0] < FLOOR_MIN_NODES:
+        raise ValueError(f"floor_cycles reads records up to {FLOOR_MIN_NODES - 1}")
+    C, T = launch_geometry(rows, cluster)
+    out = torch.zeros(len(FLOOR_PIECES) + 1, dtype=torch.int64, device=nodes.device)
+    with torch.cuda.device(nodes.device):
+        stream = torch.cuda.current_stream(nodes.device).cuda_stream
+        rc = _entry("floor_cycles")(nodes.data_ptr(), rows, C, T, reps, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"floor_cycles launch failed: cudaError {rc}")
+    kernel_launch.n_launches["floor_cycles"] += 1
+    *cycles, dep = out.tolist()
+    if dep != 0:
+        raise RuntimeError(f"floor_cycles: its chains' dependences sum to {dep}, not 0")
+    return {p: c / reps for p, c in zip(FLOOR_PIECES, cycles)}
+
+
+def floor_chain(pieces: dict) -> dict:
+    """Each variant's cycles an iteration, estimated from the pieces
+    (`floor_cycles`) on its chain of dependences, one piece for each step
+    as the kernel calls it. Stack only: the write and the barrier (st_bar;
+    the read feeds nothing). +load: the read, the record load at its
+    address, the publication and the barrier (ld + ldg + pub_bar; the
+    write, of another slot, is off the chain). +slab: the read, the load,
+    the publication and the vote (ld + ldg + pub_vote). An estimate, not a
+    bound: pieces timed alone may overlap in the kernel, so the sum can
+    exceed the kernel's own iteration."""
+    head = pieces["ld"] + pieces["ldg"]
+    return {"stack only": pieces["st_bar"], "+load": head + pieces["pub_bar"],
+            "+slab": head + pieces["pub_vote"]}
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock (MHz) that `nvidia-smi --query-gpu=clocks.sm` prints
+    while the card spins in torch.cuda._sleep (idle, it would print the
+    idle clock)."""
+    torch.cuda._sleep(3_000_000_000)  # about 1.5 s
+    line = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    torch.cuda.synchronize()
+    return float(line.split()[0])
 
 
 # ---------------------------------------------------------------------------
@@ -554,13 +641,17 @@ VARIANTS = {
 }
 
 
-def source_fns(lib, label: str, block: bool) -> dict:
-    """The packet traversals of a built kernel_lab source -> {kernel name:
-    fn(nodes, tris, o, d, t_max, **kw)}, launches counted as
-    "LABEL:NAME"; `block`: entries without launch geometry."""
-    argtypes = _BLOCK_ARGTYPES if block else _ARGTYPES
+def source_fns(lib, label: str, abi: str = "") -> dict:
+    """The packet kernels of a built kernel_lab source -> {kernel name:
+    fn(nodes, tris, o, d, t_max, **kw) for the traversals, fn(nodes, ox,
+    n_iter, with_load, with_slab, rows, cluster) for floor_bench}, launches
+    counted as "LABEL:NAME". `abi` (parse_source): "block", entries without
+    launch geometry; "floor-block", floor_bench alone so (it runs one block
+    of min(rows*128, 1024) threads, whatever `cluster`)."""
+    argtypes = _BLOCK_ARGTYPES if abi == "block" else _ARGTYPES
     lab, brless = (_bind(lib, n, argtypes) for n in ("lab_traverse", "brless_traverse"))
-    cluster = "block" if block else None
+    floor = _bind(lib, "floor_bench", _BLOCK_ARGTYPES if abi else _ARGTYPES)
+    cluster = "block" if abi == "block" else None
 
     def lab_fn(nodes, tris, o, d, t_max, rows=32, k_pop=1, leaf_mode="extract8", count=False,
                vec=False):
@@ -575,16 +666,22 @@ def source_fns(lib, label: str, block: bool) -> dict:
                                  (tris.shape[0], int(leaf_when)), nodes, tris, o, d, t_max,
                                  rows, cluster)
 
-    return {"lab_traverse": lab_fn, "brless_traverse": brless_fn}
+    def floor_fn(nodes, ox, n_iter=5000, with_load=False, with_slab=False, rows=32,
+                 cluster=None):
+        return _launch_floor(floor, f"{label}:floor_bench", nodes, ox, n_iter, with_load,
+                             with_slab, rows, "block" if abi else cluster)
+
+    return {"lab_traverse": lab_fn, "brless_traverse": brless_fn, "floor_bench": floor_fn}
 
 
 def parse_source(spec: str):
-    """"LABEL=PATH[:block]" -> (label, path, block)."""
+    """"LABEL=PATH[:ABI]" -> (label, path, abi); ABI "block" or
+    "floor-block" (source_fns), default "" (the tree's entries)."""
     label, rest = spec.split("=", 1)
     path, _, abi = rest.partition(":")
-    if abi not in ("", "block"):
-        raise ValueError(f"unknown entry signature {abi!r} (only 'block')")
-    return label, path, abi == "block"
+    if abi not in ("", "block", "floor-block"):
+        raise ValueError(f"unknown entry signature {abi!r} (only 'block' or 'floor-block')")
+    return label, path, abi
 
 
 def timeit(fn, *args, n=5, **kw):
@@ -592,6 +689,38 @@ def timeit(fn, *args, n=5, **kw):
     out = []
     ms = median_ms(lambda: out.append(fn(*args, **kw)), n)
     return ms, out[-1]
+
+
+def floor_ox(rays):
+    """The floor's lane values: the bounce class's o.x, twice over."""
+    return rays["bounce"][0][:, 0].repeat(2).contiguous()
+
+
+def floor_sweep(fns: dict, nodes, ox, n_iter=FLOOR_ITERS) -> dict:
+    """Every floor variant (FLOOR_VARIANTS) at every geometry of
+    FLOOR_GEOMETRIES through each of `fns` ({label: fn(nodes, ox, n_iter,
+    with_load, with_slab, rows, cluster)}) in turns (A B ... B A; `timeit`
+    each), every result held bit for bit to floor_bench_plain ->
+    {(variant, geometry): {label: [ms, ms]}}."""
+    labels = list(fns)
+    report = {}
+    for geo, (rows, cluster) in FLOOR_GEOMETRIES.items():
+        for variant, (wl, ws) in FLOOR_VARIANTS.items():
+            want = floor_bench_plain(nodes, ox, n_iter, wl, ws, rows)
+            times = {lb: [] for lb in labels}
+            for lb in labels + labels[::-1]:
+                ms, out = timeit(fns[lb], nodes, ox, n_iter, wl, ws, rows, cluster)
+                if not torch.equal(out, want):
+                    raise AssertionError(f"floor {variant} {geo}: {lb} differs from the plain "
+                                         "version")
+                times[lb].append(ms)
+            report[(variant, geo)] = times
+    return report
+
+
+def ns_per_iter(readings, n_iter=FLOOR_ITERS) -> float:
+    """Floor readings (ms) -> their mean in ns an iteration."""
+    return float(np.mean(readings)) * 1e6 / n_iter
 
 
 def compare_sources(specs, classes, rays, nodes, tris, smi, json_path=None) -> int:
@@ -604,7 +733,7 @@ def compare_sources(specs, classes, rays, nodes, tris, smi, json_path=None) -> i
     for path, lines in ptxas.items():
         for line in lines:
             print(f"ptxas {path}: {line}", flush=True)
-    fns = {label: source_fns(built[path][0], label, block) for label, path, block in specs}
+    fns = {label: source_fns(built[path][0], label, abi) for label, path, abi in specs}
     labels = list(fns)
     R = rays["bounce"][0].shape[0]
     report = {}
@@ -637,6 +766,17 @@ def compare_sources(specs, classes, rays, nodes, tris, smi, json_path=None) -> i
                      + f"; {labels[1:]} bit-equal to {labels[0]}")
             print(line, flush=True)
             report[f"{tag} {cls}"] = rec
+    floor = floor_sweep({lb: fns[lb]["floor_bench"] for lb in labels}, nodes, floor_ox(rays))
+    for (variant, geo), times in floor.items():
+        line = f"floor {variant:10s} {geo:16s}"
+        rec = {"geometry": launch_geometry(*FLOOR_GEOMETRIES[geo])}
+        for lb in labels:
+            rec[lb] = {"ns_per_iter": ns_per_iter(times[lb]), "readings": times[lb]}
+            line += (f"  {lb} {rec[lb]['ns_per_iter']:8.2f} ns/iter "
+                     f"({'/'.join(f'{x:.4f}' for x in times[lb])} ms)")
+        print(line + f"; cluster/threads {rec['geometry']} (a block source: one block); "
+              "every source bit-equal to the plain version", flush=True)
+        report[f"floor {variant} {geo}"] = rec
     out = {"kernel_lab_sources": report, "sources": {lb: p for lb, p, _ in specs},
            "device": torch.cuda.get_device_name(0), "name_power_limit": smi}
     if json_path:
@@ -650,7 +790,7 @@ def compare_sources(specs, classes, rays, nodes, tris, smi, json_path=None) -> i
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true", help="the bounce class only")
-    ap.add_argument("--source", action="append", metavar="LABEL=PATH[:block]",
+    ap.add_argument("--source", action="append", metavar="LABEL=PATH[:ABI]",
                     help="time these kernel_lab sources side by side (repeatable)")
     ap.add_argument("--json", help="with --source: write the report to this file")
     args = ap.parse_args(argv)
@@ -690,14 +830,13 @@ def main(argv=None) -> int:
     for cls in classes:
         run("sq+count rows=32 k=1", cls, rows=32, k_pop=1, count=True)
 
-    ox = rays["bounce"][0][:, 0].repeat(2).contiguous()
-    for wl, ws, tag in [(False, False, "floor: stack only"), (True, False, "floor: +load+extract"),
-                        (True, True, "floor: +slab+any")]:
-        n_iter = 20000
-        ms, _ = timeit(floor_bench, nodes, ox, n_iter=n_iter, with_load=wl, with_slab=ws)
-        ns = ms * 1e6 / n_iter
-        print(f"{tag:42s} {ns:8.1f} ns/iter", flush=True)
-        results[tag] = {"ms": ms, "ns_per_iter": ns}
+    for (variant, geo), times in floor_sweep({"kernel": floor_bench}, nodes,
+                                             floor_ox(rays)).items():
+        tag = f"floor: {variant} {geo}"
+        ns = ns_per_iter(times["kernel"])
+        print(f"{tag:42s} {ns:8.1f} ns/iter  cluster/threads "
+              f"{launch_geometry(*FLOOR_GEOMETRIES[geo])}", flush=True)
+        results[tag] = {"ms": float(np.mean(times["kernel"])), "ns_per_iter": ns}
 
     for cls in classes:
         for lw, tag in ((False, "brless leaf=always rows=32"), (True, "brless leaf=select rows=32")):

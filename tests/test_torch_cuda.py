@@ -353,20 +353,58 @@ def test_brless_kernel_matches_plain(leaf_when, rows, cluster):
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_load,with_slab", [(False, False), (True, False), (True, True)])
 def test_floor_kernel_matches_plain(with_load, with_slab):
+    """One packet a cluster: every rows at every cluster size that
+    launch_geometry allows for it, bit for bit."""
     _need_card()
     from nn_bvh_tpu_torch.tools import kernel_lab
 
     rs = np.random.RandomState(2)
     nodes = torch.as_tensor(rs.randn(17100, 8).astype(np.float32), device="cuda")
     ox = torch.as_tensor(rs.randn(4096).astype(np.float32), device="cuda")
-    for rows, n_iter in ((8, 100), (32, 3000)):
-        out = kernel_lab.floor_bench(nodes, ox, n_iter=n_iter, with_load=with_load,
-                                     with_slab=with_slab, rows=rows)
-        ref = kernel_lab.floor_bench_plain(nodes, ox, n_iter=n_iter, with_load=with_load,
-                                           with_slab=with_slab, rows=rows)
-        assert out.shape == (rows, 128) and torch.equal(out, ref)
+    ran = 0
+    for rows in kernel_lab.ROWS:
+        ref = {n_iter: kernel_lab.floor_bench_plain(nodes, ox, n_iter=n_iter,
+                                                    with_load=with_load, with_slab=with_slab,
+                                                    rows=rows) for n_iter in (37, 3000)}
+        for cluster in (None, 1, 2, 4, 8):
+            try:
+                kernel_lab.launch_geometry(rows, cluster)
+            except ValueError:
+                continue
+            for n_iter, want in ref.items():
+                out = kernel_lab.floor_bench(nodes, ox, n_iter=n_iter, with_load=with_load,
+                                             with_slab=with_slab, rows=rows, cluster=cluster)
+                assert out.shape == (rows, 128) and torch.equal(out, want), (rows, cluster)
+                ran += 1
+    assert ran == 2 * (len(kernel_lab.ROWS) + 17)  # and the 17 sizes that can be forced
     with pytest.raises(ValueError, match="17023"):
         kernel_lab.floor_bench(nodes[:17000].contiguous(), ox, n_iter=10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["rows=32", "rows=4 cluster=1", "rows=4 cluster=8"])
+def test_floor_cycles_times_each_piece(geometry):
+    """The probe runs in one cluster of each geometry of the floor's sweep,
+    reads a positive number of cycles for every piece, and its chains are
+    the ones it names: a record load outlasts a shared load, the vote its
+    block OR, a publication the barrier after it, and an exchange between 8
+    blocks one within a block."""
+    _need_card()
+    from nn_bvh_tpu_torch.tools import kernel_lab
+
+    rows, cluster = kernel_lab.FLOOR_GEOMETRIES[geometry]
+    rs = np.random.RandomState(2)
+    nodes = torch.as_tensor(rs.randn(17100, 8).astype(np.float32), device="cuda")
+    pieces = kernel_lab.floor_cycles(nodes, rows, cluster, reps=200)
+    assert list(pieces) == list(kernel_lab.FLOOR_PIECES)
+    assert all(0 < c < 1e5 for c in pieces.values()), pieces
+    assert all(c > 0 for c in kernel_lab.floor_chain(pieces).values())
+    p = pieces
+    assert p["ldg"] > p["ld"] and p["vote"] > p["or"], pieces
+    assert p["pub_bar"] > p["bar"] and p["pub_vote"] > p["pub_bar"], pieces
+    if kernel_lab.launch_geometry(rows, cluster)[0] > 1:
+        one_block = kernel_lab.floor_cycles(nodes, 4, 1, reps=200)
+        assert p["xchg"] > one_block["xchg"], (pieces, one_block)
 
 
 @pytest.mark.cuda

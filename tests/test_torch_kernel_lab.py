@@ -212,6 +212,47 @@ def test_floor_addresses_follow_the_reference():
     assert kernel_lab.FLOOR_MIN_NODES == 17024
 
 
+@pytest.mark.parametrize("variant", list(FLOOR_CASES))
+def test_floor_bench_takes_a_cluster_on_the_cpu(variant, floor_table):
+    """floor_bench checks a forced cluster on the CPU as the traversals do
+    (a geometry no block can hold raises) and returns the same tensor for
+    every cluster that a packet of `rows` can have."""
+    with_load, with_slab = FLOOR_CASES[variant]
+    _, tab, ox = floor_table
+    ox = torch.from_numpy(np.tile(ox, 2))  # 4,096 lanes: rows 32
+    kw = dict(n_iter=60, with_load=with_load, with_slab=with_slab)
+    allowed = 0
+    for rows in kernel_lab.ROWS:
+        ref = kernel_lab.floor_bench_plain(tab, ox, rows=rows, **kw)
+        for cluster in (None, 1, 2, 3, 4, 8, 16):
+            try:
+                kernel_lab.launch_geometry(rows, cluster)
+            except ValueError:
+                with pytest.raises(ValueError, match="cluster"):
+                    kernel_lab.floor_bench(tab, ox, rows=rows, cluster=cluster, **kw)
+                continue
+            allowed += 1
+            assert torch.equal(kernel_lab.floor_bench(tab, ox, rows=rows, cluster=cluster, **kw),
+                               ref)
+    assert allowed == len(kernel_lab.ROWS) + 17
+
+
+def test_floor_chain_adds_the_pieces_on_each_chain():
+    """Stack only: the write and the barrier; +load: the read, the record
+    load, the publication and its barrier; +slab: the read, the load, the
+    publication and the vote. The probe measures the card: CPU tensors
+    raise."""
+    pieces = dict(zip(kernel_lab.FLOOR_PIECES, (50.0, 30.0, 29.0, 260.0, 90.0, 700.0, 40.0,
+                                                500.0, 600.0)))
+    assert len(pieces) == len(kernel_lab.FLOOR_PIECES)
+    assert kernel_lab.floor_chain(pieces) == {"stack only": 50.0, "+load": 379.0,
+                                              "+slab": 989.0}
+    with pytest.raises(ValueError, match="card"):
+        kernel_lab.floor_cycles(torch.zeros(17100, 8))
+    assert [kernel_lab.launch_geometry(*g) for g in kernel_lab.FLOOR_GEOMETRIES.values()] == [
+        (8, 512), (1, 512), (8, 64)]
+
+
 def test_floor_bench_refuses_a_small_table(floor_table):
     _, tab, ox = floor_table
     with pytest.raises(ValueError, match="17023"):
@@ -416,9 +457,11 @@ def test_forced_cluster_is_checked_on_the_cpu(tables, ray_batch):
 
 def test_source_specs_and_variants():
     assert kernel_lab.parse_source("pr7=build/ab/kernel_lab.cu:block") == (
-        "pr7", "build/ab/kernel_lab.cu", True)
+        "pr7", "build/ab/kernel_lab.cu", "block")
+    assert kernel_lab.parse_source("pr8=build/ab/pr8.cu:floor-block") == (
+        "pr8", "build/ab/pr8.cu", "floor-block")
     assert kernel_lab.parse_source("tree=nn_bvh_tpu_torch/csrc/kernel_lab.cu") == (
-        "tree", "nn_bvh_tpu_torch/csrc/kernel_lab.cu", False)
+        "tree", "nn_bvh_tpu_torch/csrc/kernel_lab.cu", "")
     with pytest.raises(ValueError, match="signature"):
         kernel_lab.parse_source("x=a.cu:cluster")
     kinds = [k for k, _ in kernel_lab.VARIANTS.values()]
