@@ -93,7 +93,28 @@ points, once per traversal backend, and checks it:
    9's rule, and phase 3's contract with its tie count; then for each
    kernel the sums, its "traversal device ms per wave" warm and cold with
    its bound, and torch.profiler's device time of the kernel on two batches
-   beside device_ms.
+   beside device_ms;
+14. gradients: d sum(film.xyz)/R / d mat_coeffs and / d light_scale of one
+   bench wave (depth 4, Russian roulette off: rr_depth 99) by autograd,
+   through cuda_bvh4 and through the plain traversal on the card (rtol 1e-3
+   + atol 1e-6), central finite differences with common random numbers on
+   the coefficient of largest gradient (relative error < 2%), the forward +
+   backward time by CUDA events and the peak memory;
+15. VolPath through make_wave_fn, which takes the phased wave
+   (volpath.make_phased_wave) over cuda_bvh4: `volpath_bench` (the bench
+   scene and wave with kind="volpath") over 16 waves, its image mean within
+   5% of Path's over the same 16 waves; `volpath_fog` (the fog sphere of
+   tests/test_phased_wave.py at 400x400 with the crown's settings: depth
+   100, rr_depth 2, MIS, power light sampler; Sobol for the crown's
+   Halton); for each the wave time by CUDA events (a warm-up, then 3
+   waves), bvh4_traverse launches a wave, the CUDA kernels of a wave
+   (torch.profiler), the lanes and live lanes of each phase; the fog image
+   finite with mean > 0, its peak memory, and its phased wave over
+   cuda_bvh4 against trace_wave_vol over the plain traversal on the same
+   samples (atol and rtol 1e-5), every batch the phased wave hands the
+   kernel held against the plain traversal (phase 3's contract, tie lanes
+   counted); the fog scene as built (its sphere opaque: no ray enters the
+   medium) and with the sphere as a medium boundary (rays scatter in it).
 
 Any failure raises (exit code != 0). The last two lines of standard output
 are a JSON record of the kernels and {"ok": true, "device": {...}}.
@@ -557,6 +578,210 @@ def phase_floor(torch, nodes, ox, visit_us):
     return row
 
 
+def phase_gradients(torch, sc, dbvh, cam, dev):
+    """Phase 14: d sum(film)/R / d mat_coeffs and d / d light_scale of one
+    bench wave (depth 4, Russian roulette off), through cuda_bvh4 and through
+    the plain traversal on the card; central finite differences on one
+    coefficient; forward + backward time and peak memory."""
+    from nn_bvh_tpu_torch.accel import dispatch
+    from nn_bvh_tpu_torch.core import samplers
+    from nn_bvh_tpu_torch.geometry import scene as scene_mod
+    from nn_bvh_tpu_torch.scatter import lightsamplers
+    from nn_bvh_tpu_torch.wavefront import film as film_mod, integrator
+
+    cfg = integrator.IntegratorConfig(max_depth=DEPTH, mis=True, rr_depth=99)
+    scfg = samplers.make_sampler("sobol", seed=0, spp=16)
+    tsc = scene_mod.to_device(sc, dev)
+    lst = lightsamplers.build(tsc, cfg.light_sampler, dev)
+    R = cam.width * cam.height
+    pix = torch.arange(R, dtype=torch.int32, device=dev)
+    mc = tsc.mat_coeffs.detach().clone().requires_grad_(True)
+    ls = tsc.light_scale.detach().clone().requires_grad_(True)
+
+    def loss(isect, mat_coeffs, light_scale):
+        s2 = tsc.replace(mat_coeffs=mat_coeffs, light_scale=light_scale)
+        L, lam, pdf, fw = integrator.trace_wave(s2, None, cam, scfg, cfg, pix, 0, lst, isect)
+        film = film_mod.add_samples(film_mod.make_film(cam.height, cam.width, dev), pix, L, lam,
+                                    pdf, filter_weight=fw, sequential=True)
+        return film.xyz.sum() / R
+
+    def grads(isect):
+        value = loss(isect, mc, ls)
+        return value, torch.autograd.grad(value, (mc, ls))
+
+    k_isect = dispatch.make_intersectors(sc, dbvh, dev)
+    p_isect = dispatch.make_intersectors(sc, dbvh, dev, backend="plain")
+    grads(k_isect)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_counts()
+    ms, (value, g_k) = event_ms(torch, lambda: grads(k_isect))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    check(counts.get("bvh4_traverse", 0) > 0 and set(counts) == {"bvh4_traverse"},
+          f"gradient wave launches {counts}")
+    _, g_p = grads(p_isect)
+    rtol, atol = 1e-3, 1e-6
+    for name, a, b in zip(("mat_coeffs", "light_scale"), g_k, g_p):
+        check(bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0, f"{name} grad {a}")
+        check(bool(torch.allclose(a, b, rtol=rtol, atol=atol)),
+              f"{name}: kernel grad differs from plain by {float((a - b).abs().max()):.3g}")
+    err = max(float((a - b).abs().max()) for a, b in zip(g_k, g_p))
+    # central differences with common random numbers on the largest coefficient
+    i, j = divmod(int(g_k[0].abs().argmax()), 3)
+    eps = 1e-3
+    step = torch.zeros_like(mc)
+    step[i, j] = eps
+    with torch.no_grad():
+        fd = (float(loss(k_isect, mc + step, ls)) - float(loss(k_isect, mc - step, ls))) / (2 * eps)
+    rel = abs(float(g_k[0][i, j]) - fd) / max(abs(fd), 1e-12)
+    check(rel < 0.02, f"finite differences: autograd {float(g_k[0][i, j])} vs {fd}")
+    print(f"phase 14: loss {value.item():.6f}; d/d mat_coeffs {g_k[0].flatten().tolist()}, "
+          f"d/d light_scale {g_k[1].flatten().tolist()}; kernel vs plain traversal: max |diff| "
+          f"{err:.3g} (rtol {rtol}, atol {atol}); finite differences on mat_coeffs[{i},{j}] "
+          f"(eps {eps}): autograd {float(g_k[0][i, j]):.6f}, central difference {fd:.6f}, "
+          f"relative error {rel:.2e} (< 2e-2); forward + backward {ms:.1f} ms by CUDA events, "
+          f"peak memory {peak / 2**20:.1f} MiB above the {base_mem / 2**20:.1f} MiB held "
+          f"before; launches {counts}", flush=True)
+
+
+def cuda_kernel_count(torch, fn) -> int | None:
+    """CUDA kernels launched by fn (torch.profiler), None when the profiler
+    records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+    return n or None
+
+
+def timed_waves(torch, label, wave, film, first: int, n: int):
+    """Samples first .. first+n-1 through wave, timed by CUDA events ->
+    (film, ms a wave, bvh4_traverse launches a wave, phases of the last)."""
+    reset_counts()
+    ms, film = event_ms(torch, lambda: functools.reduce(wave, range(first, first + n), film))
+    counts = launch_counts()
+    check(set(counts) == {"bvh4_traverse"}, f"{label}: launches {counts}")
+    return film, ms / n, counts.get("bvh4_traverse", 0) / n, getattr(wave, "phases", None)
+
+
+def phase_volpath(torch, sc, dbvh, cam, dev):
+    """Phase 15: VolPath on the card through make_wave_fn (the phased wave
+    over cuda_bvh4): volpath_bench against Path over 16 waves, and
+    volpath_fog (the crown's settings) against trace_wave_vol."""
+    from nn_bvh_tpu_torch.accel import dispatch
+    from nn_bvh_tpu_torch.tools import bench_scene
+    from nn_bvh_tpu_torch.wavefront import film as film_mod, integrator
+
+    waves = 16
+    means = {}
+    for label, (cfg, scfg) in (("volpath_bench", bench_scene.volpath_bench_config()),
+                               ("path", bench_scene.bench_config())):
+        isect = dispatch.make_intersectors(sc, dbvh, dev)
+        wave = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=isect)
+        check((label == "path") != hasattr(wave, "phases"), f"{label}: wrong wave function")
+        film = wave(film_mod.make_film(cam.height, cam.width, dev), 0)  # warm-up
+        film, ms, launches, phases = timed_waves(torch, label, wave, film, 1, 3)
+        film = functools.reduce(wave, range(4, waves), film)
+        img = film_mod.develop(film)
+        means[label] = float(img.mean())
+        check(bool(torch.isfinite(img).all()) and means[label] > 0, f"{label}: bad image")
+        print(f"phase 15: {label}: {ms:.1f} ms a wave (CUDA events, 3 waves after a warm-up), "
+              f"{launches:.1f} bvh4_traverse launches a wave"
+              + ("" if phases is None else f", phases (depth, lanes, live) {phases}")
+              + f"; image mean over {waves} waves {means[label]:.6f}", flush=True)
+        if label == "volpath_bench":
+            n_k = cuda_kernel_count(torch, lambda: wave(film, waves))
+            print(f"phase 15: volpath_bench: CUDA kernels a wave (torch.profiler): "
+                  f"{n_k if n_k is not None else 'not measured'}", flush=True)
+    rel = abs(means["volpath_bench"] - means["path"]) / means["path"]
+    check(rel < 0.05, f"volpath_bench mean {means['volpath_bench']} vs path {means['path']}")
+    print(f"phase 15: volpath_bench mean vs Path mean over {waves} waves: {rel:.4f} (< 0.05)")
+
+    for interface in (False, True):
+        phase_fog(torch, dev, interface)
+
+
+def phase_fog(torch, dev, interface: bool):
+    """Phase 15's `volpath_fog` (interface=False: the scene as
+    tests/test_phased_wave.py builds it, its diffuse sphere opaque) or the
+    same with the sphere as a pure medium boundary, so rays enter the fog:
+    time, launches and phases of the phased wave, then the phased wave over
+    cuda_bvh4 against trace_wave_vol over the plain traversal on the same
+    samples, each batch of the kernel held against the plain traversal,
+    counting the lanes that scattered in the medium there."""
+    from nn_bvh_tpu_torch.accel import dispatch
+    from nn_bvh_tpu_torch.geometry import scene as scene_mod
+    from nn_bvh_tpu_torch.tools import bench_scene
+    from nn_bvh_tpu_torch.wavefront import film as film_mod, integrator, volpath
+
+    label = "volpath_fog" + (" (sphere as medium boundary)" if interface else "")
+    fsc, fdbvh, fcam = bench_scene.build_fog_scene(interface=interface)
+    cfg, scfg = bench_scene.volpath_fog_config()
+    isect = dispatch.make_intersectors(fsc, fdbvh, dev)
+    wave = integrator.make_wave_fn(fsc, fdbvh, fcam, scfg, cfg, isect=isect)
+    check(hasattr(wave, "phases"), f"{label}: make_wave_fn did not take the phased wave")
+    film = wave(film_mod.make_film(fcam.height, fcam.width, dev), 0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    film, ms, launches, phases = timed_waves(torch, label, wave, film, 1, 3)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    img = film_mod.develop(film)
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0, f"{label}: bad image")
+    n_k = cuda_kernel_count(torch, lambda: wave(film, 4))
+    print(f"phase 15: {label} ({fsc.n_tris} triangles, {fsc.n_media} medium, "
+          f"{fcam.width}x{fcam.height}, depth {cfg.max_depth}): {ms:.1f} ms a wave (CUDA "
+          f"events, 3 waves after a warm-up), {launches:.1f} bvh4_traverse launches a wave, "
+          f"CUDA kernels and copies a wave (torch.profiler): "
+          f"{n_k if n_k is not None else 'not measured'}, peak memory "
+          f"{peak / 2**20:.1f} MiB above {base_mem / 2**20:.1f} MiB; phases of wave 3 (depth, "
+          f"lanes, live): {phases}; image mean {float(img.mean()):.6f}", flush=True)
+
+    # the phased wave over cuda_bvh4 against the whole-wave trace over the
+    # plain traversal, same samples, on the card; every batch the phased wave
+    # hands the kernel is also held against the plain traversal (check_hits)
+    tsc = scene_mod.to_device(fsc, dev)
+    R = fcam.width * fcam.height
+    pix = torch.arange(R, dtype=torch.int32, device=dev)
+    p_isect = dispatch.make_intersectors(fsc, fdbvh, dev, backend="plain")
+    checked = bench_scene.CheckedIntersectors(isect, p_isect, label)
+    wave = integrator.make_wave_fn(fsc, fdbvh, fcam, scfg, cfg, isect=checked)
+    f_ph = f_pl = film_mod.make_film(fcam.height, fcam.width, dev)
+    scattered = []
+    events = volpath.medium_events
+
+    def counted(*a, **kw):
+        out = events(*a, **kw)
+        scattered.append(int(out[0].sum()))
+        return out
+
+    volpath.medium_events = counted
+    try:
+        for s in range(2):
+            f_ph = wave(f_ph, s)
+            L, lam, pdf, fw = volpath.trace_wave_vol(tsc, None, fcam, scfg, cfg, pix, s, None,
+                                                     p_isect)
+            f_pl = film_mod.add_samples(f_pl, pix, L, lam, pdf, filter_weight=fw,
+                                        sequential=True)
+    finally:
+        volpath.medium_events = events
+    a, b = film_mod.develop(f_ph), film_mod.develop(f_pl)
+    diff = float((a - b).abs().max())
+    check(bool(torch.allclose(a, b, atol=1e-5, rtol=1e-5)),
+          f"{label}: phased wave differs from trace_wave_vol by {diff}")
+    check((sum(scattered) > 0) == interface, f"{label}: {sum(scattered)} lanes scattered")
+    sizes = sorted({n for n, _ in checked.sizes}, reverse=True)
+    print(f"phase 15: {label}: phased wave (cuda_bvh4) vs trace_wave_vol (plain), 2 waves: "
+          f"max |diff| {diff:.3g} (atol 1e-5, rtol 1e-5); lane scatterings in the medium "
+          f"{sum(scattered)}; the kernel held against plain on all {len(checked.sizes)} batches "
+          f"of the phased wave (lanes {sizes}), contract met, {checked.ties} tie lanes",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -638,6 +863,8 @@ def main() -> int:
         out.append({"name": name, "route": "cuda", "source": LAB_SOURCE, "replaces": replaces,
                     "launches": lab_launches[name], **lab_rows[name], "library_ms": None})
     phase_wave_batches(torch, sc, dbvh, cam, dev)
+    phase_gradients(torch, sc, dbvh, cam, dev)
+    phase_volpath(torch, sc, dbvh, cam, dev)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

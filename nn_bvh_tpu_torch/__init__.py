@@ -24,6 +24,9 @@ Conventions of the port:
 What is ported is the bench path: the Path integrator (MIS + RR) over
 diffuse/conductor materials and area lights, with every traversal backend
 of the JAX package (BVH4, binary, deep-stack binary, BVH8) as a CUDA kernel,
-and the traversal profiler (`tools/trav_prof.py`). Anything else raises
-NotImplementedError naming the ROADMAP item that ports it.
+VolPath over homogeneous and grid media (`wavefront/volpath.py`, with the
+phased wave), gradients of shading with respect to material and light
+parameters by autograd, and the traversal profiler (`tools/trav_prof.py`).
+Anything else raises NotImplementedError naming the ROADMAP item that ports
+it.
 """

@@ -43,6 +43,9 @@ def apply_bvh_to_scene(scene, bvh: BVH):
     scene2 = scene.replace(tri_p=perm(scene.tri_p), tri_n=perm(scene.tri_n),
                            tri_uv=perm(scene.tri_uv), tri_mat=perm(scene.tri_mat),
                            tri_light=perm(scene.tri_light), light_params=light_params)
+    if scene.tri_med_inside is not None:
+        scene2 = scene2.replace(tri_med_inside=perm(scene.tri_med_inside),
+                                tri_med_outside=perm(scene.tri_med_outside))
     scene2 = scene2.replace(tri_shade=scene_mod.make_tri_shade(scene2))
     dbvh = DeviceBVH(node_lo=bvh.node_lo, node_hi=bvh.node_hi,
                      node_meta=bvh.node_meta, n_nodes=int(bvh.n_nodes))

@@ -33,7 +33,7 @@ def make_sampler(kind: str = "sobol", seed: int = 0, spp: int = 16,
     kinds = {"independent": INDEPENDENT, "sobol": SOBOL, "paddedsobol": SOBOL}
     if kind not in kinds:
         raise NotImplementedError(
-            f"sampler {kind!r} is not ported yet (ROADMAP queue 1, item 3)")
+            f"sampler {kind!r} is not ported yet (ROADMAP queue 1, item 2)")
     return SamplerConfig(kinds[kind], seed, spp, width)
 
 

@@ -8,8 +8,9 @@ float32/int32 tensors on one device. `scene_from_numpy` carries a JAX-built
 scene and BVH across as numpy arrays, so tests render the very same tables
 in both packages.
 
-In this slice: diffuse and conductor materials, per-triangle area lights and
-uniform infinite lights. Everything else raises NotImplementedError.
+In this slice: diffuse and conductor materials, per-triangle area lights,
+uniform infinite lights, and homogeneous and grid participating media with
+their medium interfaces. Everything else raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,6 +29,11 @@ MAT_CONDUCTOR = 1
 LIGHT_UNIFORM_INFINITE = 2
 LIGHT_AREA_TRI = 3
 LIGHT_SPHERE_AREA = 9
+# media (same values as the JAX package; cloud grids come with the parser)
+MED_HOMOGENEOUS = 0
+MED_GRID = 1
+MED_GRID_RES = 64  # density grids resampled to a fixed-size stack
+MAJ_GRID_RES = 16  # low-res conservative majorant grid
 
 N_MAT_PARAMS = 12   # [rough_u, rough_v, eta, k, transmittance, texture, mix_a,
 #  mix_b, mix_amount, coat_roughness, eta_tab, k_tab]
@@ -36,7 +42,9 @@ N_LIGHT_PARAMS = 12  # AREA_TRI: [0]=tri_index [1]=two_sided
 SLICE_MATERIALS = (MAT_DIFFUSE, MAT_CONDUCTOR)
 SLICE_LIGHTS = (LIGHT_UNIFORM_INFINITE, LIGHT_AREA_TRI)
 
-_INT_FIELDS = ("tri_mat", "tri_light", "mat_type", "light_type")
+_INT_FIELDS = ("tri_mat", "tri_light", "mat_type", "light_type", "med_type",
+               "med_grid_id", "med_temp_grid_id", "tri_med_inside", "tri_med_outside")
+_STATIC_INTS = ("n_tris", "n_lights", "n_media", "camera_medium")
 
 
 class CompiledScene(NamedTuple):
@@ -63,6 +71,23 @@ class CompiledScene(NamedTuple):
     bounds: object       # (2, 3) f32
     tri_shade: object    # (N, 28) f32 fused shading record: v0 v1 v2 | n0 n1 n2
     #   | uv0 uv1 uv2 | mat_id | light_id | med_inside | med_outside
+    # participating media (fused per lane by scatter.media.medium_records)
+    med_type: object = None         # (K,) i32
+    med_sa_coeffs: object = None    # (K, 3) sigma_a sigmoid-poly chroma
+    med_ss_coeffs: object = None    # (K, 3) sigma_s
+    med_le_coeffs: object = None    # (K, 3) emission chroma
+    med_scales: object = None       # (K, 4) [sigma_a scale, sigma_s scale, le scale, g]
+    med_grid_id: object = None      # (K,) i32 index into med_grids (-1 = none)
+    med_max_density: object = None  # (K,) majorant density (1 for homogeneous)
+    med_bounds: object = None       # (K, 2, 3) world AABB of the density grid
+    med_grids: object = None        # (G, D, H, W) density stack
+    med_temp_grids: object = None   # (G2, D, H, W) Kelvin temperature stack
+    med_temp_grid_id: object = None  # (K,) i32 (-1 = RGB Le)
+    med_maj_grids: object = None    # (G, MAJ, MAJ, MAJ) supervoxel majorants
+    n_media: int = 0
+    camera_medium: int = -1         # the medium the camera sits in
+    tri_med_inside: object = None   # (N,) i32 medium behind the geometric normal
+    tri_med_outside: object = None  # (N,) i32 medium the normal points into
 
     def replace(self, **kw) -> "CompiledScene":
         return self._replace(**kw)
@@ -84,15 +109,50 @@ def make_tri_shade(scene: CompiledScene) -> np.ndarray:
     out[:, 18:24] = host(scene.tri_uv).astype(np.float32).reshape(n, 6)
     out[:, 24] = host(scene.tri_mat).astype(np.float32)
     out[:, 25] = host(scene.tri_light).astype(np.float32)
-    out[:, 26:28] = -1.0  # no participating media in this slice
+    if scene.tri_med_inside is not None:
+        out[:, 26] = host(scene.tri_med_inside).astype(np.float32)
+        out[:, 27] = host(scene.tri_med_outside).astype(np.float32)
+    else:
+        out[:, 26:28] = -1.0
     return out
+
+
+def majorant_grid(dens: np.ndarray, res: int = MAJ_GRID_RES) -> np.ndarray:
+    """Conservative low-res majorant of a density grid: the supervoxel max
+    over the covered fine voxels, dilated by one fine voxel on every side so
+    the trilinear density field (which reads neighbour samples) is bounded
+    everywhere inside the supervoxel."""
+    d = np.asarray(dens, np.float32)
+    D, H, W = d.shape
+    pad = np.pad(d, 1, mode="edge")
+    out = np.zeros((res, res, res), np.float32)
+    zb = [int(np.floor(i * D / res)) for i in range(res + 1)]
+    yb = [int(np.floor(i * H / res)) for i in range(res + 1)]
+    xb = [int(np.floor(i * W / res)) for i in range(res + 1)]
+    for z in range(res):
+        for y in range(res):
+            for x in range(res):
+                out[z, y, x] = pad[zb[z]:zb[z + 1] + 2, yb[y]:yb[y + 1] + 2,
+                                   xb[x]:xb[x + 1] + 2].max()
+    return out
+
+
+def _resample(grid, r: int = MED_GRID_RES) -> np.ndarray:
+    """Nearest resample of a (D, H, W) grid to the r^3 stack resolution."""
+    g = np.asarray(grid, np.float32)
+    zi = (np.arange(r) * (g.shape[0] / r)).astype(np.int64)
+    yi = (np.arange(r) * (g.shape[1] / r)).astype(np.int64)
+    xi = (np.arange(r) * (g.shape[2] / r)).astype(np.int64)
+    return g[zi][:, yi][:, :, xi]
 
 
 def to_device(scene: CompiledScene, device) -> CompiledScene:
     """Upload every table once, as float32 / int32 tensors on `device`."""
     def up(name, v):
-        if isinstance(v, (int, np.integer)) and name.startswith("n_"):
+        if name in _STATIC_INTS:
             return int(v)
+        if v is None:
+            return None
         dt = torch.int32 if name in _INT_FIELDS else torch.float32
         if not isinstance(v, torch.Tensor):
             v = torch.as_tensor(np.asarray(v))
@@ -112,34 +172,32 @@ def check_slice(fields: dict) -> None:
     if bad_mats:
         raise NotImplementedError(
             f"material tags {sorted(bad_mats)} are not ported yet "
-            "(ROADMAP queue 1, item 2: remaining materials)")
+            "(ROADMAP queue 1, item 1: remaining materials)")
     bad_lights = set(np.unique(host(fields["light_type"])).tolist()) - set(SLICE_LIGHTS)
     if bad_lights:
         raise NotImplementedError(
             f"light tags {sorted(bad_lights)} are not ported yet "
-            "(ROADMAP queue 1, item 3: remaining lights)")
+            "(ROADMAP queue 1, item 2: remaining lights)")
     if int(fields.get("n_quadrics") or 0):
         raise NotImplementedError("analytic quadrics are not ported yet "
-                                  "(ROADMAP queue 1, item 3)")
-    if int(fields.get("n_media") or 0):
-        raise NotImplementedError("participating media are not ported yet "
-                                  "(ROADMAP queue 1, item 1: volpath)")
+                                  "(ROADMAP queue 1, item 2)")
     if has("tri_p_end"):
         raise NotImplementedError("motion blur is not ported yet "
-                                  "(ROADMAP queue 1, item 3)")
+                                  "(ROADMAP queue 1, item 2)")
     if has("tex_atlas") and np.asarray(fields["tex_atlas"]).size > 4:
         raise NotImplementedError("textures are not ported yet "
-                                  "(ROADMAP queue 1, item 4)")
+                                  "(ROADMAP queue 1, item 3)")
     if has("env_luminance") and np.asarray(fields["env_luminance"]).size > 1:
         raise NotImplementedError("environment maps are not ported yet "
-                                  "(ROADMAP queue 1, item 3)")
+                                  "(ROADMAP queue 1, item 2)")
 
 
 def scene_from_numpy(fields: dict, bvh_fields: dict, device):
     """JAX CompiledScene + DeviceBVH, given as dicts of numpy arrays
     (np.asarray of each field) -> (port CompiledScene, port DeviceBVH), both
     as tensors on `device`. The differentiable parameters (mat_coeffs,
-    light_scale) come across like every other table."""
+    light_scale) come across like every other table, and so do the media
+    tables and the medium interfaces."""
     from ..accel.traverse import DeviceBVH
 
     check_slice(fields)
@@ -158,8 +216,11 @@ class SceneBuilder:
     def __init__(self):
         self._tri_p, self._tri_n, self._tri_uv, self._tri_mat = [], [], [], []
         self._tri_emit = []   # (rgb, scale, two_sided) or None per mesh
+        self._tri_med = []    # (med_inside, med_outside) per mesh
         self._materials = []
         self._lights = []
+        self._media = []
+        self._camera_medium = -1
 
     def add_material(self, kind: str = "diffuse", reflectance=(0.5, 0.5, 0.5),
                      roughness: float = 0.0, eta: float = 1.5,
@@ -168,7 +229,7 @@ class SceneBuilder:
         if kind not in kinds:
             raise NotImplementedError(
                 f"material {kind!r} is not ported yet "
-                "(ROADMAP queue 1, item 2: remaining materials)")
+                "(ROADMAP queue 1, item 1: remaining materials)")
         # the JAX builder's defaults for the columns this slice does not use:
         # transmittance 0, texture -1, mix (-1, -1, 0.5), coat 0, tables -1
         params = np.array([roughness, roughness, eta, k, 0.0, -1.0, -1.0, -1.0,
@@ -186,12 +247,60 @@ class SceneBuilder:
             params=np.zeros(N_LIGHT_PARAMS, np.float32)))
         return len(self._lights) - 1
 
+    def add_medium(self, kind: str = "homogeneous", sigma_a=(1.0, 1.0, 1.0),
+                   sigma_s=(0.0, 0.0, 0.0), scale: float = 1.0, g: float = 0.0,
+                   Le=(0.0, 0.0, 0.0), Le_scale: float = 0.0, density=None,
+                   bounds=None, temperature=None, temperature_scale: float = 1.0,
+                   temperature_offset: float = 0.0) -> int:
+        """A participating medium, as the JAX builder registers it:
+        homogeneous, or a grid of `density` ((D, H, W), resampled to
+        MED_GRID_RES^3) over the world box `bounds` ((2, 3)). sigma_a and
+        sigma_s are RGB chromas times `scale`; the emission Le * Le_scale is
+        multiplied by sigma_a where it is sampled. A `temperature` grid
+        (Kelvin, scale and offset applied here) makes the emission blackbody
+        radiance at the local temperature times Le_scale."""
+        kinds = {"homogeneous": MED_HOMOGENEOUS, "grid": MED_GRID}
+        if kind not in kinds:
+            raise NotImplementedError(f"medium {kind!r} is not ported yet "
+                                      "(ROADMAP queue 1, item 4: it comes with the parser)")
+        if kinds[kind] == MED_GRID:
+            if density is None or bounds is None:
+                raise ValueError("grid medium needs density + bounds")
+            grid = _resample(density)
+            max_density = float(np.asarray(density, np.float32).max())
+            bounds = np.asarray(bounds, np.float32).reshape(2, 3)
+            maj = majorant_grid(grid)
+        else:
+            grid = maj = None
+            max_density = 1.0
+            bounds = np.zeros((2, 3), np.float32)
+        tgrid = None
+        if temperature is not None:
+            # the blackbody path reads a flat Le_scale spectrum (media.le_at)
+            if not np.any(np.asarray(Le)):
+                Le = (1.0, 1.0, 1.0)
+            tgrid = _resample((np.asarray(temperature, np.float32) - temperature_offset)
+                              * temperature_scale)
+        self._media.append(dict(
+            type=kinds[kind], sigma_a=np.asarray(sigma_a, np.float32),
+            sigma_s=np.asarray(sigma_s, np.float32), scale=float(scale), g=float(g),
+            Le=np.asarray(Le, np.float32), Le_scale=float(Le_scale), grid=grid, maj=maj,
+            max_density=max_density, bounds=bounds, tgrid=tgrid))
+        return len(self._media) - 1
+
+    def set_camera_medium(self, medium: int) -> None:
+        self._camera_medium = int(medium)
+
     def add_mesh(self, vertices, faces, material: int, normals=None,
                  emission_rgb=None, emission_scale: float = 1.0,
-                 two_sided: bool = False) -> None:
+                 two_sided: bool = False, med_inside: int = -1,
+                 med_outside: int = -1) -> None:
         """Indexed triangle mesh (render space, no uvs: transforms and
         textures come with the parser and texture items of the ROADMAP);
-        with emission_rgb every triangle becomes a diffuse area light."""
+        with emission_rgb every triangle becomes a diffuse area light.
+        med_inside / med_outside are the media on the side the geometric
+        normal points away from / toward; material -1 makes the mesh a pure
+        medium boundary."""
         vertices = np.asarray(vertices, np.float32)
         faces = np.asarray(faces, np.int64)
         p = vertices[faces]
@@ -205,16 +314,18 @@ class SceneBuilder:
         self._tri_n.append(n.astype(np.float32))
         self._tri_uv.append(np.zeros((len(faces), 3, 2), np.float32))
         self._tri_mat.append(np.full(len(faces), material, np.int32))
+        self._tri_med.append((int(med_inside), int(med_outside)))
         self._tri_emit.append(
             None if emission_rgb is None else
             (np.asarray(emission_rgb, np.float32), float(emission_scale), two_sided))
 
     def add_sphere(self, center, radius, material, n_theta=32, n_phi=64,
-                   emission_rgb=None):
-        """Tessellated sphere (same tessellation as the JAX builder)."""
+                   emission_rgb=None, **kw):
+        """Tessellated sphere (same tessellation as the JAX builder); **kw
+        goes to add_mesh (med_inside, med_outside)."""
         if emission_rgb is not None:
             raise NotImplementedError("sphere area lights are not ported yet "
-                                      "(ROADMAP queue 1, item 3)")
+                                      "(ROADMAP queue 1, item 2)")
         th = np.linspace(0, np.pi, n_theta + 1)
         ph = np.linspace(0, 2 * np.pi, n_phi + 1)
         tt, pp = np.meshgrid(th, ph, indexing="ij")
@@ -232,7 +343,7 @@ class SceneBuilder:
                 if i < n_theta - 1:
                     faces.append([b, c, d])
         self.add_mesh(np.asarray(verts, np.float32), np.asarray(faces), material,
-                      normals=normals.astype(np.float32))
+                      normals=normals.astype(np.float32), **kw)
 
     def add_quad(self, p00, p10, p11, p01, material, **kw):
         verts = np.asarray([p00, p10, p11, p01], np.float32)
@@ -246,6 +357,10 @@ class SceneBuilder:
         tri_uv = np.concatenate(self._tri_uv)
         tri_mat = np.concatenate(self._tri_mat)
         n = len(tri_p)
+        tri_med_in = np.concatenate([np.full(len(c), mi, np.int32)
+                                     for c, (mi, _) in zip(self._tri_p, self._tri_med)])
+        tri_med_out = np.concatenate([np.full(len(c), mo, np.int32)
+                                      for c, (_, mo) in zip(self._tri_p, self._tri_med)])
 
         # per-mesh emission -> one area light per triangle
         tri_light = np.full(n, -1, np.int32)
@@ -272,6 +387,8 @@ class SceneBuilder:
             tri_uv = np.concatenate([tri_uv, np.zeros((pad, 3, 2), np.float32)])
             tri_mat = np.concatenate([tri_mat, np.full(pad, -1, np.int32)])
             tri_light = np.concatenate([tri_light, np.full(pad, -1, np.int32)])
+            tri_med_in = np.concatenate([tri_med_in, np.full(pad, -1, np.int32)])
+            tri_med_out = np.concatenate([tri_med_out, np.full(pad, -1, np.int32)])
 
         if not self._materials:
             self.add_material("diffuse")
@@ -296,6 +413,7 @@ class SceneBuilder:
         lo = tri_p[:n].reshape(-1, 3).min(0)
         hi = tri_p[:n].reshape(-1, 3).max(0)
         out = CompiledScene(
+            **self._build_media(), tri_med_inside=tri_med_in, tri_med_outside=tri_med_out,
             tri_p=tri_p, tri_n=tri_n, tri_uv=tri_uv, tri_mat=tri_mat,
             tri_light=tri_light, n_tris=n,
             mat_type=mat_type, mat_coeffs=mat_coeffs, mat_scale=mat_scale,
@@ -304,3 +422,48 @@ class SceneBuilder:
             light_scale=light_scale, light_params=light_params,
             n_lights=int(len(lights)), bounds=np.stack([lo, hi]), tri_shade=None)
         return out.replace(tri_shade=make_tri_shade(out))
+
+    def _build_media(self) -> dict:
+        """The media tables, laid out as the JAX builder lays them out (with
+        its placeholders when the scene has no media)."""
+        media = self._media
+        if not media:
+            return dict(
+                med_type=np.zeros(0, np.int32), med_sa_coeffs=np.zeros((0, 3), np.float32),
+                med_ss_coeffs=np.zeros((0, 3), np.float32),
+                med_le_coeffs=np.zeros((0, 3), np.float32),
+                med_scales=np.zeros((0, 4), np.float32), med_grid_id=np.zeros(0, np.int32),
+                med_max_density=np.zeros(0, np.float32),
+                med_bounds=np.zeros((0, 2, 3), np.float32),
+                med_grids=np.zeros((1, 1, 1, 1), np.float32),
+                med_maj_grids=np.ones((1, 1, 1, 1), np.float32),
+                med_temp_grids=np.zeros((1, 1, 1, 1), np.float32),
+                med_temp_grid_id=np.zeros(0, np.int32), n_media=0, camera_medium=-1)
+        coeffs = lambda key: rgb2spec.rgb_to_coeffs_host(np.stack([m[key] for m in media]))
+        (sa_c, sa_s), (ss_c, ss_s), (le_c, le_s) = coeffs("sigma_a"), coeffs("sigma_s"), \
+            coeffs("Le")
+        user = np.array([m["scale"] for m in media], np.float32)
+        med_scales = np.stack([sa_s * user, ss_s * user,
+                               le_s * np.array([m["Le_scale"] for m in media], np.float32),
+                               np.array([m["g"] for m in media], np.float32)], -1)
+        grids, majs, tgrids = [], [], []
+        grid_id = np.full(len(media), -1, np.int32)
+        temp_id = np.full(len(media), -1, np.int32)
+        for i, m in enumerate(media):
+            if m["grid"] is not None:
+                grid_id[i] = len(grids)
+                grids.append(m["grid"])
+                majs.append(m["maj"])
+            if m["tgrid"] is not None:
+                temp_id[i] = len(tgrids)
+                tgrids.append(m["tgrid"])
+        stack = lambda g, fill: np.stack(g) if g else np.full((1, 1, 1, 1), fill, np.float32)
+        return dict(
+            med_type=np.array([m["type"] for m in media], np.int32), med_sa_coeffs=sa_c,
+            med_ss_coeffs=ss_c, med_le_coeffs=le_c, med_scales=med_scales.astype(np.float32),
+            med_grid_id=grid_id,
+            med_max_density=np.array([m["max_density"] for m in media], np.float32),
+            med_bounds=np.stack([m["bounds"] for m in media]), med_grids=stack(grids, 0.0),
+            med_maj_grids=stack(majs, 1.0), med_temp_grids=stack(tgrids, 0.0),
+            med_temp_grid_id=temp_id, n_media=len(media),
+            camera_medium=self._camera_medium)

@@ -1,5 +1,5 @@
 """Ray-cone footprint helpers (port of nn_bvh_tpu/geometry/texture.py:154-171).
-Texture lookups themselves are not in this slice (ROADMAP queue 1, item 4)."""
+Texture lookups themselves are not in this slice (ROADMAP queue 1, item 3)."""
 
 from __future__ import annotations
 

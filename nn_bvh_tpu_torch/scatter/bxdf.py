@@ -65,7 +65,10 @@ def tr_d(wm, ax, ay):
     e = (vm.cos_phi(wm) ** 2 / torch.clamp(ax * ax, min=1e-12)
          + vm.sin_phi(wm) ** 2 / torch.clamp(ay * ay, min=1e-12)) * t2
     d = 1.0 / torch.clamp(math.pi * ax * ay * c4 * (1.0 + e) ** 2, min=1e-20)
-    return torch.where(torch.isfinite(t2), d, 0.0)
+    # a normal within ~1e-19 of the horizon gives c4 = 0 and e = inf, so
+    # d = NaN: no density there, as for an infinite tan^2 (a NaN that the
+    # forward pass would discard still turns 0 * NaN into a NaN gradient)
+    return torch.where(torch.isfinite(t2) & torch.isfinite(d), d, 0.0)
 
 
 def tr_lambda(w, ax, ay):
@@ -128,7 +131,7 @@ def gather_material(scene, mat_id, lam, mat_all=None, uv=None,
     """Per-lane material parameters with the base color expanded at the
     sampled wavelengths (one gather). Textures and mix materials are not in
     this slice (the scene check refuses them), so the texture inputs uv and
-    foot_log2 have no effect yet (ROADMAP queue 1, item 4)."""
+    foot_log2 have no effect yet (ROADMAP queue 1, item 3)."""
     if mat_all is None:
         mat_all = material_records(scene)
     rec = mat_all[torch.clamp(mat_id, min=0).long()]

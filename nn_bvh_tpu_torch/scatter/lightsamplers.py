@@ -1,6 +1,6 @@
 """Light samplers: uniform and power (port of those kinds of
 nn_bvh_tpu/scatter/lightsamplers.py). The light BVH and exhaustive samplers
-are not in this slice (ROADMAP queue 1, item 3)."""
+are not in this slice (ROADMAP queue 1, item 2)."""
 
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ def compute_light_powers(scene) -> np.ndarray:
             power[i] = np.pi * area * scale[i] * two
         else:
             raise NotImplementedError(f"light tag {t} is not ported yet "
-                                      "(ROADMAP queue 1, item 3)")
+                                      "(ROADMAP queue 1, item 2)")
     return np.maximum(power.astype(np.float32), 0.0)
 
 
@@ -49,7 +49,7 @@ def build(scene, kind: str, device) -> LightSamplerTables:
     kinds = {"uniform": UNIFORM, "power": POWER}
     if kind not in kinds:
         raise NotImplementedError(f"light sampler {kind!r} is not ported yet "
-                                  "(ROADMAP queue 1, item 3)")
+                                  "(ROADMAP queue 1, item 2)")
     k = kinds[kind]
     L = int(scene.n_lights)
     if L == 0:

@@ -187,6 +187,49 @@ def bench_config():
             samplers.make_sampler("sobol", seed=0, spp=16))
 
 
+def volpath_bench_config():
+    """The bench wave with kind="volpath" (the `volpath_bench`
+    configuration): depth 4, Russian roulette from depth 2, power light
+    sampler, Sobol 16 spp, seed 0 -> (IntegratorConfig, sampler config). On
+    the bench scene (no media) its mean equals Path's in expectation."""
+    return (integrator.IntegratorConfig(kind="volpath", max_depth=BENCH_DEPTH, rr_depth=2),
+            samplers.make_sampler("sobol", seed=0, spp=16))
+
+
+FOG_DEPTH = 100  # the crown's maxdepth
+
+
+def build_fog_scene(size: int = BENCH_SIZE, interface: bool = False):
+    """The `volpath_fog` scene: tests/test_phased_wave.py:29-38's fog sphere
+    (a diffuse sphere filled with a homogeneous scattering medium, a floor,
+    an emissive quad) with that test's camera, at the bench's 400x400 ->
+    (host scene, DeviceBVH, camera). The diffuse sphere is opaque, so no ray
+    reaches its medium; interface=True makes the sphere a pure medium
+    boundary (material -1), so rays enter the fog and scatter in it."""
+    b = scene_mod.SceneBuilder()
+    m = b.add_material("diffuse", reflectance=(0.6, 0.5, 0.4))
+    fog = b.add_medium(sigma_a=(0.05, 0.05, 0.05), sigma_s=(0.3, 0.3, 0.3))
+    b.add_sphere((0, 1, 0), 0.8, -1 if interface else m, n_theta=10, n_phi=20,
+                 med_inside=fog)
+    b.add_quad((-5, 0, -5), (5, 0, -5), (5, 0, 5), (-5, 0, 5), m)
+    b.add_quad((-1, 4, -1), (1, 4, -1), (1, 4, 1), (-1, 4, 1), m,
+               emission_rgb=(1, 1, 1), emission_scale=10.0, two_sided=True)
+    sc, dbvh, _ = accel.build_scene_bvh(b.build())
+    cam = camera_mod.make_perspective(xf.look_at((0, 2, -4), (0, 1, 0), (0, 1, 0)), fov=50.0,
+                                      width=size, height=size)
+    return sc, dbvh, cam
+
+
+def volpath_fog_config():
+    """The crown's integrator settings (bench.py:122-126): VolPath, MIS,
+    depth 100, Russian roulette from depth 2, power light sampler, 64 spp;
+    Sobol, seed 0, where the crown uses Halton (not ported) ->
+    (IntegratorConfig, sampler config)."""
+    return (integrator.IntegratorConfig(kind="volpath", max_depth=FOG_DEPTH, rr_depth=2,
+                                        mis=True, light_sampler="power"),
+            samplers.make_sampler("sobol", seed=0, spp=64))
+
+
 def probe_batches(sc, cam, dev):
     """chip_smoke phase 3's batches: camera rays of sample 0 and incoherent
     rays (origins in the scene box, uniform directions), one t_max with 20%
@@ -221,6 +264,27 @@ class RecordingIntersectors(dispatch.Intersectors):
     def _call(self, o, d, t_max, any_hit):
         self.batches.append((o.clone(), d.clone(), t_max.clone(), any_hit))
         return super()._call(o, d, t_max, any_hit)
+
+
+class CheckedIntersectors(dispatch.Intersectors):
+    """The Intersectors of `isect`, holding each batch they are handed
+    against `plain` on the same batch (check_hits) and returning isect's
+    result. `sizes` keeps each batch's lane count and any-hit flag, `ties`
+    the sum of tie lanes."""
+
+    def __init__(self, isect: dispatch.Intersectors, plain: dispatch.Intersectors,
+                 label: str):
+        super().__init__(isect.backend, isect.tables, isect.device, isect.sort_bounds)
+        self.plain, self.label = plain, label
+        self.sizes, self.ties = [], 0
+
+    def _call(self, o, d, t_max, any_hit):
+        out = super()._call(o, d, t_max, any_hit)
+        ref = self.plain._call(o, d, t_max, any_hit)
+        self.ties += check_hits(out, ref, t_max, any_hit,
+                                f"{self.label}, batch {len(self.sizes)} of {o.shape[0]} lanes")
+        self.sizes.append((o.shape[0], any_hit))
+        return out
 
 
 def bench_wave(sc, dbvh, cam, isect) -> film_mod.Film:

@@ -13,7 +13,7 @@ from ..core import sampling
 
 class Camera(NamedTuple):
     """A static perspective camera (other kinds and camera motion blur:
-    ROADMAP queue 1, items 3 and 9)."""
+    ROADMAP queue 1, items 2 and 8)."""
 
     cam_to_world: np.ndarray  # (4,4) f32, pbrt LookAt convention (+z forward)
     fov: float                # degrees, shorter image axis

@@ -58,7 +58,7 @@ def make_sensor(white_balance_temp: float | None = None, iso: float = 100.0,
     to sRGB white. Other white-balance temperatures are not in this slice."""
     if white_balance_temp is not None:
         raise NotImplementedError("white-balance temperatures are not ported "
-                                  "yet (ROADMAP queue 1, item 9)")
+                                  "yet (ROADMAP queue 1, item 8)")
     wb = colorspace.white_balance_matrix(spectrum.illuminant_whitepoint_xyz(),
                                          colorspace.SRGB_WHITE_XYZ)
     m = colorspace.XYZ_TO_RGB_SRGB @ wb

@@ -1,5 +1,7 @@
 """Wavefront Path integrator (port of the `kind="path"` path of
-nn_bvh_tpu/wavefront/integrator.py).
+nn_bvh_tpu/wavefront/integrator.py) and the dispatch of `make_wave_fn` /
+`render` to it or to VolPath (`kind="volpath" | "simplevolpath"`,
+wavefront/volpath.py).
 
 One 1-spp wave traces one path per pixel as a dense batch of lanes; every
 stage (camera rays, intersect, emission, material, shadow rays, BSDF
@@ -45,12 +47,27 @@ DIM_PATH_BASE = 5
 DIMS_PER_DEPTH = 7  # [bsdf_uc, bsdf_u, bsdf_v, light_select, light_u, light_v, rr]
 
 
+VOL_KINDS = ("volpath", "simplevolpath")
+
+
 class IntegratorConfig(NamedTuple):
     max_depth: int = 5
     mis: bool = True              # False = SimplePath semantics
     rr_depth: int = 1             # Russian roulette from this depth on
     light_sampler: str = "power"  # uniform | power
-    kind: str = "path"            # the only integrator of this slice
+    kind: str = "path"            # path | volpath | simplevolpath
+    max_null_steps: int = 64      # cap on medium events per VolPath segment
+    max_shadow_segments: int = 4  # VolPath shadow-ray re-spawns across interfaces
+    compact: bool = True          # VolPath on a CUDA backend: the phased wave
+    #   (volpath.make_phased_wave), when early_exit is set too
+    resort: bool = True           # VolPath on CUDA backends: re-sort the lane
+    #   state each bounce and trace unsorted; False traces through the sorted
+    #   intersector. Path always re-sorts and refuses False.
+    early_exit: bool = True       # the JAX name, for config parity. Every loop
+    #   of the port exits once every lane is dead, whatever its value; it only
+    #   takes part in the dispatch rule, where False selects the whole-wave
+    #   trace as compact=False does. JAX's fixed-depth scan for jax.grad has
+    #   no counterpart here.
 
 
 class ShadingPoint(NamedTuple):
@@ -92,16 +109,22 @@ def _shading_point(scene, hit: Hit, o, d) -> ShadingPoint:
 
 
 def _check_cfg(cfg: IntegratorConfig):
-    if cfg.kind != "path":
+    if cfg.kind != "path" and cfg.kind not in VOL_KINDS:
         raise NotImplementedError(f"integrator {cfg.kind!r} is not ported yet "
-                                  "(ROADMAP queue 1, items 1 and 9)")
+                                  "(ROADMAP queue 1, item 8)")
+    if cfg.kind == "path" and not cfg.resort:
+        raise NotImplementedError("the Path wave re-sorts its lanes on every CUDA "
+                                  "backend; resort=False is VolPath's switch only")
 
 
 def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
                sample_idx, ls_tables=None, isect=None):
     """Trace one path per entry of pixel_idx -> (L, lam, lam_pdf, film_w).
-    `scene` holds tensors on pixel_idx's device (geometry.scene.to_device)."""
+    `scene` holds tensors on pixel_idx's device (geometry.scene.to_device).
+    VolPath is volpath.trace_wave_vol."""
     _check_cfg(cfg)
+    if cfg.kind != "path":
+        raise ValueError(f"trace_wave traces Path, not {cfg.kind!r}")
     device = pixel_idx.device
     if ls_tables is None:
         ls_tables = lightsamplers.build(scene, cfg.light_sampler, device)
@@ -111,6 +134,9 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
     sort_blo = scene.bounds[0]
     sort_bext = torch.clamp(scene.bounds[1] - sort_blo, min=1e-9)
 
+    # Traversal sits outside every differentiated path, as in the JAX package
+    # (which stops gradients there and gives no TPU kernel a backward pass):
+    # the kernels need no torch.autograd.Function, the hits carry no graph.
     def isect_closest(o, d, t_max):
         with torch.no_grad():
             return isect.closest(o.detach(), d.detach(), t_max.detach())
@@ -284,20 +310,32 @@ def make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig,
                  isect=None, device=None):
     """Build the 1-spp wave function film, sample_idx -> film. Host-side
     tables (light sampler, BVH4 packing) are built here and uploaded once.
-    `isect` overrides the traversal backend (tests / comparisons)."""
+    `isect` overrides the traversal backend (tests / comparisons).
+
+    VolPath takes the phased wave (volpath.make_phased_wave) when
+    cfg.compact and cfg.early_exit are set and the traversal is a CUDA
+    backend, the JAX package's rule; otherwise (the CPU's plain traversal
+    among them) it traces the whole wave (volpath.trace_wave_vol)."""
+    from . import volpath
+
     _check_cfg(cfg)
     if isect is not None and device is None:
         device = isect.device
     device = resolve_device(device, scene)
-    ls_tables = lightsamplers.build(scene, cfg.light_sampler, device)
     if isect is None:
-        isect = dispatch.make_intersectors(scene, dbvh, device)
+        isect = dispatch.make_intersectors(scene, dbvh, device, sort=not cfg.resort)
+    if (cfg.kind in VOL_KINDS and cfg.compact and cfg.early_exit
+            and isect.backend in dispatch.CUDA_BACKENDS):
+        return volpath.make_phased_wave(scene, dbvh, cam, sampler_cfg, cfg, isect=isect,
+                                        device=device)
+    ls_tables = lightsamplers.build(scene, cfg.light_sampler, device)
     scene_d = scene_mod.to_device(scene, device)
     pixel_idx = torch.arange(cam.width * cam.height, dtype=torch.int32, device=device)
+    trace = volpath.trace_wave_vol if cfg.kind in VOL_KINDS else trace_wave
 
     def wave(film: film_mod.Film, sample_idx) -> film_mod.Film:
-        L, lam, lam_pdf, fw = trace_wave(scene_d, None, cam, sampler_cfg, cfg,
-                                         pixel_idx, sample_idx, ls_tables, isect)
+        L, lam, lam_pdf, fw = trace(scene_d, None, cam, sampler_cfg, cfg,
+                                    pixel_idx, sample_idx, ls_tables, isect)
         return film_mod.add_samples(film, pixel_idx, L, lam, lam_pdf,
                                     filter_weight=fw, sequential=True)
 

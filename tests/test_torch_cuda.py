@@ -217,6 +217,37 @@ def test_wave_kernel_matches_plain_on_cuda():
     assert float(films[0].mean()) > 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("interface", [False, True], ids=["opaque_sphere", "fog_boundary"])
+def test_phased_volpath_kernel_matches_plain_trace(interface):
+    """VolPath's phased wave through cuda_bvh4 (padded, cut and re-sorted
+    batches, shadow segments across the fog's boundary) against the
+    whole-wave trace through the plain traversal, with the crown's settings
+    at 128x128; every batch of the kernel is held against the plain
+    traversal on the same lanes."""
+    _need_card()
+    from nn_bvh_tpu_torch.wavefront import volpath
+
+    sc, dbvh, cam = bench_scene.build_fog_scene(128, interface)
+    cfg, scfg = bench_scene.volpath_fog_config()
+    plain = dispatch.make_intersectors(sc, dbvh, "cuda", backend="plain")
+    checked = bench_scene.CheckedIntersectors(
+        dispatch.make_intersectors(sc, dbvh, "cuda"), plain, "fog")
+    wave = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=checked)
+    assert hasattr(wave, "phases")
+    tsc = scene.to_device(sc, "cuda")
+    pix = torch.arange(cam.width * cam.height, dtype=torch.int32, device="cuda")
+    f_ph = f_pl = film.make_film(cam.height, cam.width, "cuda")
+    for s in range(2):
+        f_ph = wave(f_ph, s)
+        L, lam, pdf, fw = volpath.trace_wave_vol(tsc, None, cam, scfg, cfg, pix, s, None, plain)
+        f_pl = film.add_samples(f_pl, pix, L, lam, pdf, filter_weight=fw, sequential=True)
+    a, b = film.develop(f_ph), film.develop(f_pl)
+    assert float(a.mean()) > 0
+    torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    assert len({n for n, _ in checked.sizes}) > 1, checked.sizes  # the ladder cut lanes
+
+
 @pytest.fixture(scope="module")
 def bench():
     """The bench scene (52,996 triangles) and 20,000 incoherent rays in its

@@ -195,7 +195,7 @@ def test_unported_integrators_raise(setup):
     scfg = samplers.make_sampler("sobol", seed=0, spp=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         integrator.make_wave_fn(tsc, tbvh, tcam, scfg,
-                                integrator.IntegratorConfig(kind="volpath"))
+                                integrator.IntegratorConfig(kind="bdpt"))
 
 
 def test_port_imports_no_jax():
