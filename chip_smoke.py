@@ -114,7 +114,29 @@ points, once per traversal backend, and checks it:
    samples (atol and rtol 1e-5), every batch the phased wave hands the
    kernel held against the plain traversal (phase 3's contract, tie lanes
    counted); the fog scene as built (its sphere opaque: no ray enters the
-   medium) and with the sphere as a medium boundary (rays scatter in it).
+   medium) and with the sphere as a medium boundary (rays scatter in it);
+16. the materials: `bench_scene.build_material_scene()` (the bench
+   geometry, its 24 spheres cycling through twelve materials: smooth and
+   rough dielectric, thin dielectric, diffuse transmission, coated diffuse
+   and coated conductor, a mix, hair, a measured GGX table, subsurface,
+   spectral gold, diffuse) at 400x400 through make_wave_fn on cuda_bvh4 with
+   the bench configuration: the wave time by CUDA events (a warm-up, then 3
+   waves), bvh4_traverse launches a wave, peak memory, CUDA kernels and
+   copies a wave (torch.profiler), also with the coated spheres made
+   diffuse (the layered walk's share); the image finite with mean > 0; the
+   same seed through the plain traversal gives the same film by phase 5's
+   rule, while every batch the kernel is handed (the subsurface probes
+   among them) is held against the plain traversal (phase 3's contract,
+   tie lanes counted); the gradient of one wave with Russian roulette off
+   (d sum(film.xyz)/R / d mat_coeffs, by autograd over two chunks of
+   80,000 lanes, which bounds autograd's memory) finite on every material
+   and equal through cuda_bvh4 and the plain traversal (rtol 1e-3 + atol
+   1e-6), its forward + backward time and peak memory; then phase 15's fog
+   run on `build_fog_scene(interface="glass")` (a dielectric sphere, eta
+   1.33, holding the fog): time, launches, phases, the phased wave against
+   trace_wave_vol (1e-5), lane scatterings in the fog > 0, and the lanes
+   whose medium changed on real transmission through the glass > 0. Each
+   line ends with the seconds since phase 16 began.
 
 Any failure raises (exit code != 0). The last two lines of standard output
 are a JSON record of the kernels and {"ok": true, "device": {...}}.
@@ -647,11 +669,12 @@ def phase_gradients(torch, sc, dbvh, cam, dev):
 
 
 def cuda_kernel_count(torch, fn) -> int | None:
-    """CUDA kernels launched by fn (torch.profiler), None when the profiler
-    records no device activity."""
+    """CUDA kernels and copies launched by fn (torch.profiler, device
+    activity only: the host's op events would make a profile of 100,000s of
+    kernels take minutes to read), None when the profiler records none."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     n = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
@@ -705,20 +728,22 @@ def phase_volpath(torch, sc, dbvh, cam, dev):
         phase_fog(torch, dev, interface)
 
 
-def phase_fog(torch, dev, interface: bool):
+def phase_fog(torch, dev, interface, phase: int = 15):
     """Phase 15's `volpath_fog` (interface=False: the scene as
     tests/test_phased_wave.py builds it, its diffuse sphere opaque) or the
-    same with the sphere as a pure medium boundary, so rays enter the fog:
-    time, launches and phases of the phased wave, then the phased wave over
-    cuda_bvh4 against trace_wave_vol over the plain traversal on the same
-    samples, each batch of the kernel held against the plain traversal,
-    counting the lanes that scattered in the medium there."""
+    same with the sphere as a pure medium boundary (True) or as glass
+    ("glass", phase 16), so rays enter the fog: time, launches and phases of
+    the phased wave, then the phased wave over cuda_bvh4 against
+    trace_wave_vol over the plain traversal on the same samples, each batch
+    of the kernel held against the plain traversal, counting the lanes that
+    scattered in the medium there and the lanes whose medium changed."""
     from nn_bvh_tpu_torch.accel import dispatch
     from nn_bvh_tpu_torch.geometry import scene as scene_mod
     from nn_bvh_tpu_torch.tools import bench_scene
     from nn_bvh_tpu_torch.wavefront import film as film_mod, integrator, volpath
 
-    label = "volpath_fog" + (" (sphere as medium boundary)" if interface else "")
+    label = "volpath_fog" + {False: "", True: " (sphere as medium boundary)",
+                             "glass": " (glass sphere)"}[interface]
     fsc, fdbvh, fcam = bench_scene.build_fog_scene(interface=interface)
     cfg, scfg = bench_scene.volpath_fog_config()
     isect = dispatch.make_intersectors(fsc, fdbvh, dev)
@@ -732,8 +757,9 @@ def phase_fog(torch, dev, interface: bool):
     peak = torch.cuda.max_memory_allocated() - base_mem
     img = film_mod.develop(film)
     check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0, f"{label}: bad image")
-    n_k = cuda_kernel_count(torch, lambda: wave(film, 4))
-    print(f"phase 15: {label} ({fsc.n_tris} triangles, {fsc.n_media} medium, "
+    # phase 16 counts no kernels here (~500,000 a wave, its time is enough)
+    n_k = cuda_kernel_count(torch, lambda: wave(film, 4)) if phase == 15 else None
+    print(f"phase {phase}: {label} ({fsc.n_tris} triangles, {fsc.n_media} medium, "
           f"{fcam.width}x{fcam.height}, depth {cfg.max_depth}): {ms:.1f} ms a wave (CUDA "
           f"events, 3 waves after a warm-up), {launches:.1f} bvh4_traverse launches a wave, "
           f"CUDA kernels and copies a wave (torch.profiler): "
@@ -751,15 +777,26 @@ def phase_fog(torch, dev, interface: bool):
     checked = bench_scene.CheckedIntersectors(isect, p_isect, label)
     wave = integrator.make_wave_fn(fsc, fdbvh, fcam, scfg, cfg, isect=checked)
     f_ph = f_pl = film_mod.make_film(fcam.height, fcam.width, dev)
-    scattered = []
-    events = volpath.medium_events
+    scattered, changed = [], []
+    events, bounce = volpath.medium_events, volpath.bounce
 
     def counted(*a, **kw):
         out = events(*a, **kw)
         scattered.append(int(out[0].sum()))
         return out
 
-    volpath.medium_events = counted
+    def counted_bounce(ctx, depth, state, allow_scatter=True):
+        # lanes whose medium the bounce changed, matched by their caller lane
+        out = bounce(ctx, depth, state, allow_scatter)
+        n = int(max(state.perm.max(), out.perm.max())) + 1
+        before = torch.full((n,), -2, dtype=torch.int32, device=dev)
+        after = before.clone()
+        before[state.perm] = state.cur_med
+        after[out.perm] = out.cur_med
+        changed.append(int((before != after).sum()))
+        return out
+
+    volpath.medium_events, volpath.bounce = counted, counted_bounce
     try:
         for s in range(2):
             f_ph = wave(f_ph, s)
@@ -768,18 +805,133 @@ def phase_fog(torch, dev, interface: bool):
             f_pl = film_mod.add_samples(f_pl, pix, L, lam, pdf, filter_weight=fw,
                                         sequential=True)
     finally:
-        volpath.medium_events = events
+        volpath.medium_events, volpath.bounce = events, bounce
     a, b = film_mod.develop(f_ph), film_mod.develop(f_pl)
     diff = float((a - b).abs().max())
     check(bool(torch.allclose(a, b, atol=1e-5, rtol=1e-5)),
           f"{label}: phased wave differs from trace_wave_vol by {diff}")
-    check((sum(scattered) > 0) == interface, f"{label}: {sum(scattered)} lanes scattered")
+    check((sum(scattered) > 0) == bool(interface), f"{label}: {sum(scattered)} lanes scattered")
+    # the glass scene has no pure interface: each change is a real transmission
+    check(interface != "glass" or sum(changed) > 0, f"{label}: no medium change")
     sizes = sorted({n for n, _ in checked.sizes}, reverse=True)
-    print(f"phase 15: {label}: phased wave (cuda_bvh4) vs trace_wave_vol (plain), 2 waves: "
-          f"max |diff| {diff:.3g} (atol 1e-5, rtol 1e-5); lane scatterings in the medium "
-          f"{sum(scattered)}; the kernel held against plain on all {len(checked.sizes)} batches "
-          f"of the phased wave (lanes {sizes}), contract met, {checked.ties} tie lanes",
+    print(f"phase {phase}: {label}: phased wave (cuda_bvh4) vs trace_wave_vol (plain), 2 "
+          f"waves: max |diff| {diff:.3g} (atol 1e-5, rtol 1e-5); lane scatterings in the "
+          f"medium {sum(scattered)}, lanes whose medium changed {sum(changed)} (both waves of "
+          f"each); the kernel held against plain on all {len(checked.sizes)} batches of the "
+          f"phased wave (lanes {sizes}), contract met, {checked.ties} tie lanes", flush=True)
+
+
+def phase_materials(torch, dev):
+    """Phase 16: the material scene through make_wave_fn on cuda_bvh4 (time,
+    launches, kernels, memory; the diffuse variant's kernels), the same seed
+    through the plain traversal with every batch held against it, the
+    gradient of a wave through both, then the glass fog scene."""
+    from nn_bvh_tpu_torch.accel import dispatch
+    from nn_bvh_tpu_torch.geometry import scene as scene_mod
+    from nn_bvh_tpu_torch.scatter import lightsamplers
+    from nn_bvh_tpu_torch.tools import bench_scene
+    from nn_bvh_tpu_torch.wavefront import film as film_mod, integrator, subsurface
+
+    t0 = time.perf_counter()
+    msc, mdbvh, mcam = bench_scene.build_material_scene()
+    dsc, ddbvh, _ = bench_scene.build_material_scene(coated=False)
+    check(msc.n_tris == 52996, f"material scene has {msc.n_tris} triangles")
+    print(f"phase 16: material scene {msc.n_tris} triangles, {len(msc.mat_type)} materials "
+          f"(spheres: {', '.join(bench_scene.MATERIAL_KINDS)}), {msc.n_lights} lights, "
+          f"built twice (as is, coated spheres diffuse) in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    cfg, scfg = bench_scene.bench_config()
+    label = "material scene"
+    make_film = lambda: film_mod.make_film(mcam.height, mcam.width, dev)
+    isect = dispatch.make_intersectors(msc, mdbvh, dev)
+    check(isect.backend == "cuda_bvh4", f"CUDA picked {isect.backend}")
+    wave = integrator.make_wave_fn(msc, mdbvh, mcam, scfg, cfg, isect=isect)
+    film = wave(make_film(), 0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    film, ms, launches, _ = timed_waves(torch, label, wave, film, 1, 3)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    img = film_mod.develop(film)
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0, f"{label}: bad image")
+    n_k = cuda_kernel_count(torch, lambda: wave(film, 4))
+    dwave = integrator.make_wave_fn(dsc, ddbvh, mcam, scfg, cfg,
+                                    isect=dispatch.make_intersectors(dsc, ddbvh, dev))
+    dfilm = dwave(make_film(), 0)  # warm-up
+    n_kd = cuda_kernel_count(torch, lambda: dwave(dfilm, 1))
+    nm = lambda n: "not measured" if n is None else n
+    print(f"phase 16: {label} ({mcam.width}x{mcam.height}, Path MIS, depth 4, rr_depth 2, "
+          f"Sobol 16 spp): "
+          f"{ms:.1f} ms a wave (CUDA events, 3 waves after a warm-up), {launches:.1f} "
+          f"bvh4_traverse launches a wave, peak memory {peak / 2**20:.1f} MiB above "
+          f"{base_mem / 2**20:.1f} MiB; CUDA kernels and copies a wave (torch.profiler): "
+          f"{nm(n_k)}, {nm(n_kd)} with the coated spheres diffuse; image mean "
+          f"{float(img.mean()):.6f} [{time.perf_counter() - t0:.0f} s]", flush=True)
+
+    # the same seed through the plain traversal; each batch of the kernel
+    # (the subsurface probes among them) held against the plain traversal
+    plain = dispatch.make_intersectors(msc, mdbvh, dev, backend="plain")
+    checked = bench_scene.CheckedIntersectors(isect, plain, label)
+    f_k = integrator.make_wave_fn(msc, mdbvh, mcam, scfg, cfg, isect=checked)(make_film(), 0)
+    f_p = integrator.make_wave_fn(msc, mdbvh, mcam, scfg, cfg, isect=plain)(make_film(), 0)
+    close, rel = film_agreement(f_k.xyz, f_p.xyz)
+    check(close >= 0.995 and rel <= 1e-3,
+          f"{label}: film agrees with the plain traversal on {close:.5f} of pixels, "
+          f"mean rel diff {rel:.3g}")
+    n_any = sum(1 for _, a in checked.sizes if a)
+    n_closest = len(checked.sizes) - n_any
+    check(n_closest == 1 + n_any * (1 + subsurface.N_PROBE),
+          f"{label}: {n_closest} closest-hit batches for {n_any} shadow batches")
+    print(f"phase 16: {label}: the same seed through the plain traversal: film XYZ agrees on "
+          f"{close:.6f} of pixels, mean rel diff {rel:.3g}; the kernel held against plain on "
+          f"all {len(checked.sizes)} batches of the wave ({n_closest} closest-hit, "
+          f"{n_any * subsurface.N_PROBE} of them subsurface probes, {n_any} any-hit), "
+          f"contract met, {checked.ties} tie lanes [{time.perf_counter() - t0:.0f} s]",
+          flush=True)
+
+    # the gradient of one wave, Russian roulette off, in chunks of lanes
+    gcfg = integrator.IntegratorConfig(max_depth=DEPTH, mis=True, rr_depth=99)
+    tsc = scene_mod.to_device(msc, dev)
+    lst = lightsamplers.build(tsc, gcfg.light_sampler, dev)
+    R = mcam.width * mcam.height
+    chunks = torch.arange(R, dtype=torch.int32, device=dev).split(80000)
+    mc = tsc.mat_coeffs.detach().clone().requires_grad_(True)
+
+    def grads(isect_):
+        value, g = 0.0, torch.zeros_like(mc)
+        for pix in chunks:
+            L, lam, pdf, fw = integrator.trace_wave(tsc.replace(mat_coeffs=mc), None, mcam,
+                                                    scfg, gcfg, pix, 0, lst, isect_)
+            loss = film_mod.add_samples(make_film(), pix, L, lam, pdf,
+                                        filter_weight=fw).xyz.sum() / R
+            g += torch.autograd.grad(loss, mc)[0]
+            value += float(loss.detach())
+        return value, g
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_counts()
+    g_ms, (value, g_k) = event_ms(torch, lambda: grads(isect))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    check(set(counts) == {"bvh4_traverse"}, f"gradient wave launches {counts}")
+    _, g_p = grads(plain)
+    check(bool(torch.isfinite(g_k).all()), f"{label}: non-finite gradient rows "
+          f"{torch.nonzero(~torch.isfinite(g_k).all(-1)).flatten().tolist()}")
+    check(bool(torch.allclose(g_k, g_p, rtol=1e-3, atol=1e-6)),
+          f"{label}: kernel gradient differs from plain by {float((g_k - g_p).abs().max()):.3g}")
+    rows = [(int(t), f"{float(m):.3g}") for t, m in zip(msc.mat_type, g_k.abs().amax(-1))]
+    print(f"phase 16: {label} gradient (one wave, depth 4, RR off, {len(chunks)} chunks of "
+          f"{chunks[0].numel()} lanes): loss {value:.6f}; (material tag, max |d/d "
+          f"mat_coeffs|) by row {rows}; finite on all {g_k.shape[0]} rows; cuda_bvh4 vs plain "
+          f"traversal "
+          f"max |diff| {float((g_k - g_p).abs().max()):.3g} (rtol 1e-3, atol 1e-6); forward + "
+          f"backward {g_ms:.1f} ms by CUDA events, peak memory {peak / 2**20:.1f} MiB above "
+          f"{base_mem / 2**20:.1f} MiB; {counts['bvh4_traverse']} launches "
+          f"[{time.perf_counter() - t0:.0f} s]", flush=True)
+    phase_fog(torch, dev, "glass", phase=16)
+    print(f"phase 16: done in {time.perf_counter() - t0:.0f} s", flush=True)
 
 
 def main() -> int:
@@ -790,6 +942,7 @@ def main() -> int:
         return 1
     from nn_bvh_tpu_torch import kernels
     from nn_bvh_tpu_torch.tools import bench_scene
+
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -865,6 +1018,7 @@ def main() -> int:
     phase_wave_batches(torch, sc, dbvh, cam, dev)
     phase_gradients(torch, sc, dbvh, cam, dev)
     phase_volpath(torch, sc, dbvh, cam, dev)
+    phase_materials(torch, dev)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

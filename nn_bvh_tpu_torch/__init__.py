@@ -22,7 +22,8 @@ Conventions of the port:
   `kernels.load` into `build/kernels/` at the repository root.
 
 What is ported is the bench path: the Path integrator (MIS + RR) over
-diffuse/conductor materials and area lights, with every traversal backend
+every material of the JAX package (with its subsurface stage) and area
+lights, with every traversal backend
 of the JAX package (BVH4, binary, deep-stack binary, BVH8) as a CUDA kernel,
 VolPath over homogeneous and grid media (`wavefront/volpath.py`, with the
 phased wave), gradients of shading with respect to material and light

@@ -5,6 +5,9 @@ numpy at scene-build time, exactly as in the JAX package; the device side is
 
 from __future__ import annotations
 
+import functools
+import os
+
 import numpy as np
 import torch
 
@@ -77,3 +80,39 @@ def rgb_to_coeffs_host(rgb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     scale = np.where(m > 1.0, 2.0 * m, 1.0).astype(np.float32)
     coeffs = fit_sigmoid_coeffs(rgb / scale[:, None])
     return coeffs, scale
+
+
+TABLE_RES = 33
+_TABLE = os.path.join(os.path.dirname(__file__), "..", "..", "data",
+                      f"rgb2spec_srgb_{TABLE_RES}.npy")
+
+
+@functools.lru_cache(maxsize=1)
+def get_table() -> np.ndarray:
+    """(33, 33, 33, 3) coefficient table over RGB in [0,1]^3: the
+    repository's `data/rgb2spec_srgb_33.npy`, fit_sigmoid_coeffs on that
+    grid (the file the JAX package reads)."""
+    return np.load(_TABLE)
+
+
+def rgb_image_to_coeffs(img: np.ndarray) -> np.ndarray:
+    """(..., 3) RGB -> (..., 4) [c0, c1, c2, scale] by trilinear lookup in
+    get_table (host, scene-build time)."""
+    img = np.asarray(img, np.float32)
+    table = get_table()
+    res = TABLE_RES
+    m = img.max(-1)
+    scale = np.where(m > 1.0, 2.0 * m, 1.0).astype(np.float32)
+    norm = np.clip(img / scale[..., None], 0.0, 1.0)
+    f = norm * (res - 1)
+    i0 = np.minimum(f.astype(np.int64), res - 2)
+    fr = f - i0
+    out = np.zeros(img.shape[:-1] + (3,), np.float32)
+    for di in (0, 1):
+        for dj in (0, 1):
+            for dk in (0, 1):
+                w = ((fr[..., 0] if di else 1 - fr[..., 0])
+                     * (fr[..., 1] if dj else 1 - fr[..., 1])
+                     * (fr[..., 2] if dk else 1 - fr[..., 2]))
+                out += w[..., None] * table[i0[..., 0] + di, i0[..., 1] + dj, i0[..., 2] + dk]
+    return np.concatenate([out, scale[..., None]], axis=-1)

@@ -131,6 +131,22 @@ def reflect(wo: Tensor, n: Tensor) -> Tensor:
     return -wo + 2.0 * dot(wo, n)[..., None] * n
 
 
+def refract(wi: Tensor, n: Tensor, eta: Tensor):
+    """Snell refraction -> (valid, eta used, wt). Flips n and eta when wi is
+    on the back side, so callers pass the surface's eta as it is."""
+    ct_i = dot(n, wi)
+    flip = ct_i < 0
+    eta = torch.where(flip, 1.0 / eta, eta)
+    ct_i = torch.where(flip, -ct_i, ct_i)
+    n = torch.where(flip[..., None], -n, n)
+    s2_i = torch.clamp(1.0 - ct_i * ct_i, min=0.0)
+    s2_t = s2_i / (eta * eta)
+    tir = s2_t >= 1.0
+    ct_t = safe_sqrt(1.0 - s2_t)
+    wt = -wi / eta[..., None] + (ct_i / eta - ct_t)[..., None] * n
+    return ~tir, eta, wt
+
+
 def offset_ray_origin(p: Tensor, n: Tensor, w: Tensor,
                       scale: float = 1e-4) -> Tensor:
     """Scale-relative spawn offset (interaction.h OffsetRayOrigin analog)."""

@@ -1,16 +1,20 @@
 """Scene compilation: host builder -> SoA tables (port of the subset of
-nn_bvh_tpu/geometry/scene.py the bench scene uses).
+nn_bvh_tpu/geometry/scene.py the port renders).
 
 `SceneBuilder.build()` returns a `CompiledScene` of host numpy arrays, laid
 out exactly as the JAX package lays them out (same material/light tags, same
-parameter columns, same fused `tri_shade` record). `to_device` turns it into
-float32/int32 tensors on one device. `scene_from_numpy` carries a JAX-built
-scene and BVH across as numpy arrays, so tests render the very same tables
-in both packages.
+parameter columns, same fused `tri_shade` record, same placeholder tables).
+`to_device` turns it into float32/int32 tensors on one device. `scene_from_numpy`
+carries a JAX-built scene and BVH across as numpy arrays, so tests render the
+very same tables in both packages.
 
-In this slice: diffuse and conductor materials, per-triangle area lights,
-uniform infinite lights, and homogeneous and grid participating media with
-their medium interfaces. Everything else raises NotImplementedError.
+In this slice: every material of the JAX package (diffuse, conductor,
+dielectric, thin dielectric, diffuse transmission, coated diffuse, coated
+conductor, mix, hair, measured, subsurface; named-spectrum eta and k),
+per-triangle area lights, uniform infinite lights, and homogeneous and grid
+participating media with their medium interfaces. Textures, the other
+lights, quadrics and motion blur raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,6 +29,18 @@ from ..core import rgb2spec
 # material tags (same values as the JAX package)
 MAT_DIFFUSE = 0
 MAT_CONDUCTOR = 1
+MAT_DIELECTRIC = 2
+MAT_THIN_DIELECTRIC = 3
+MAT_DIFFUSE_TRANSMISSION = 4
+MAT_COATED_DIFFUSE = 5
+MAT_COATED_CONDUCTOR = 6
+MAT_MIX = 7
+MAT_HAIR = 8
+MAT_MEASURED = 9
+MAT_SUBSURFACE = 10  # smooth dielectric entry + tabulated BSSRDF (scatter/bssrdf.py)
+MAT_SSS_EXIT = 11    # virtual: the exit lobe a subsurface lane takes after its
+#   probe (wavefront/subsurface.py); never in mat_type
+MAT_INTERFACE = -1   # no material (a medium boundary)
 # light tags (same values as the JAX package)
 LIGHT_UNIFORM_INFINITE = 2
 LIGHT_AREA_TRI = 3
@@ -39,12 +55,16 @@ N_MAT_PARAMS = 12   # [rough_u, rough_v, eta, k, transmittance, texture, mix_a,
 #  mix_b, mix_amount, coat_roughness, eta_tab, k_tab]
 N_LIGHT_PARAMS = 12  # AREA_TRI: [0]=tri_index [1]=two_sided
 
-SLICE_MATERIALS = (MAT_DIFFUSE, MAT_CONDUCTOR)
+SLICE_MATERIALS = tuple(range(MAT_SUBSURFACE + 1))
 SLICE_LIGHTS = (LIGHT_UNIFORM_INFINITE, LIGHT_AREA_TRI)
 
 _INT_FIELDS = ("tri_mat", "tri_light", "mat_type", "light_type", "med_type",
                "med_grid_id", "med_temp_grid_id", "tri_med_inside", "tri_med_outside")
 _STATIC_INTS = ("n_tris", "n_lights", "n_media", "camera_medium")
+# static material-feature gates (the JAX names): which optional lobes and
+# stages a wave computes at all
+_STATIC_FLAGS = ("feat_mix", "feat_hair", "feat_measured", "feat_spectral",
+                 "feat_subsurface", "feat_coated")
 
 
 class CompiledScene(NamedTuple):
@@ -88,6 +108,31 @@ class CompiledScene(NamedTuple):
     camera_medium: int = -1         # the medium the camera sits in
     tri_med_inside: object = None   # (N,) i32 medium behind the geometric normal
     tri_med_outside: object = None  # (N,) i32 medium the normal points into
+    # measured BRDFs: (T, No, Ni, Np, 4) uplift coefficients over (mu_o,
+    # mu_i, dphi) (scatter/measured.py); the 1-entry zero table means none
+    measured_coeffs: object = None
+    measured_alpha: object = None   # (T,) fitted GGX proxy-sampler roughness
+    # named-spectrum tables (S, 471) on the 1-nm grid (core/named_spectra.dense),
+    # indexed by mat_params[10] (eta) and [11] (k); None without any
+    spec_tables: object = None
+    # subsurface materials (scatter/bssrdf.py), one row each; mat_params[3]
+    # of a MAT_SUBSURFACE row holds its row id
+    sss_coeffs_a: object = None   # (S, 3) sigma_a sigmoid-poly chroma
+    sss_scale_a: object = None    # (S,)
+    sss_coeffs_s: object = None   # (S, 3) sigma_s
+    sss_scale_s: object = None    # (S,)
+    sss_g: object = None          # (S,)
+    sss_profile: object = None    # (S, 64, 64) r * Sr at unit sigma_t
+    sss_cdf: object = None        # (S, 64, 64)
+    sss_rho_eff: object = None    # (S, 64)
+    sss_radius: object = None     # (64,)
+    sss_rho: object = None        # (64,)
+    feat_mix: bool = False
+    feat_hair: bool = False
+    feat_measured: bool = False
+    feat_spectral: bool = False
+    feat_subsurface: bool = False
+    feat_coated: bool = False
 
     def replace(self, **kw) -> "CompiledScene":
         return self._replace(**kw)
@@ -151,11 +196,13 @@ def to_device(scene: CompiledScene, device) -> CompiledScene:
     def up(name, v):
         if name in _STATIC_INTS:
             return int(v)
+        if name in _STATIC_FLAGS:
+            return bool(v)
         if v is None:
             return None
         dt = torch.int32 if name in _INT_FIELDS else torch.float32
         if not isinstance(v, torch.Tensor):
-            v = torch.as_tensor(np.asarray(v))
+            v = torch.as_tensor(np.array(v))
         return v.to(device=device, dtype=dt).contiguous()
 
     return CompiledScene(**{k: up(k, v) for k, v in scene._asdict().items()})
@@ -168,11 +215,13 @@ def check_slice(fields: dict) -> None:
         v = fields.get(name)
         return v is not None and np.asarray(v).size > 0
 
-    bad_mats = set(np.unique(host(fields["mat_type"])).tolist()) - set(SLICE_MATERIALS)
+    mat_type = host(fields["mat_type"])
+    bad_mats = set(np.unique(mat_type).tolist()) - set(SLICE_MATERIALS)
     if bad_mats:
-        raise NotImplementedError(
-            f"material tags {sorted(bad_mats)} are not ported yet "
-            "(ROADMAP queue 1, item 1: remaining materials)")
+        raise NotImplementedError(f"material tags {sorted(bad_mats)} are unknown")
+    if (host(fields["mat_params"])[mat_type == MAT_MIX, 8] < 0).any():
+        raise NotImplementedError("texture-driven mix amounts are not ported yet "
+                                  "(ROADMAP queue 1, item 3: textures)")
     bad_lights = set(np.unique(host(fields["light_type"])).tolist()) - set(SLICE_LIGHTS)
     if bad_lights:
         raise NotImplementedError(
@@ -220,24 +269,113 @@ class SceneBuilder:
         self._materials = []
         self._lights = []
         self._media = []
+        self._measured = []      # (No, Ni, Np, 3) RGB tables
+        self._sss = []           # subsurface rows
+        self._spec_tables = []   # (471,) dense spectra
+        self._spec_names = {}    # name -> row of _spec_tables
         self._camera_medium = -1
 
     def add_material(self, kind: str = "diffuse", reflectance=(0.5, 0.5, 0.5),
-                     roughness: float = 0.0, eta: float = 1.5,
-                     k: float = 3.9) -> int:
-        kinds = {"diffuse": MAT_DIFFUSE, "conductor": MAT_CONDUCTOR}
-        if kind not in kinds:
-            raise NotImplementedError(
-                f"material {kind!r} is not ported yet "
-                "(ROADMAP queue 1, item 1: remaining materials)")
-        # the JAX builder's defaults for the columns this slice does not use:
-        # transmittance 0, texture -1, mix (-1, -1, 0.5), coat 0, tables -1
-        params = np.array([roughness, roughness, eta, k, 0.0, -1.0, -1.0, -1.0,
-                           0.5, 0.0, -1.0, -1.0], np.float32)
+                     roughness: float = 0.0, eta: float | None = None, k: float = 3.9,
+                     transmittance: float = 0.0, texture: int = -1,
+                     coat_roughness: float = 0.0, mix_materials: tuple = (-1, -1),
+                     mix_amount: float = 0.5, beta_n: float | None = None,
+                     measured: int = -1, eta_spectrum=None, k_spectrum=None,
+                     sigma_a=(0.0011, 0.0024, 0.014), sigma_s=(2.55, 3.21, 3.77),
+                     sss_scale: float = 1.0, g: float = 0.0) -> int:
+        """A material row, as the JAX builder writes it. coateddiffuse and
+        coatedconductor put a dielectric coat (eta, coat_roughness) over the
+        base lobe; mix picks mix_materials[1] with probability mix_amount per
+        hit, else mix_materials[0]; hair takes roughness as beta_m and
+        beta_n (default beta_m), its reflectance sets sigma_a; measured
+        names an add_measured_brdf table; subsurface takes sigma_a,
+        sigma_s (RGB, times sss_scale), g and eta. eta=None is 1.33 for
+        subsurface and 1.5 otherwise. The subsurface row id and the measured
+        table id ride in the k slot; a named-spectrum eta or k
+        (eta_spectrum / k_spectrum: a name, .spd path, (lam, val) pair or
+        dense table) sets the scalar to the table's median."""
+        kinds = {"diffuse": MAT_DIFFUSE, "conductor": MAT_CONDUCTOR,
+                 "dielectric": MAT_DIELECTRIC, "thindielectric": MAT_THIN_DIELECTRIC,
+                 "diffusetransmission": MAT_DIFFUSE_TRANSMISSION,
+                 "coateddiffuse": MAT_COATED_DIFFUSE,
+                 "coatedconductor": MAT_COATED_CONDUCTOR, "mix": MAT_MIX,
+                 "hair": MAT_HAIR, "measured": MAT_MEASURED,
+                 "subsurface": MAT_SUBSURFACE}
+        if texture >= 0:
+            raise NotImplementedError("textures are not ported yet "
+                                      "(ROADMAP queue 1, item 3: textures)")
+        if eta is None:
+            eta = 1.33 if kind == "subsurface" else 1.5
+        if kind == "subsurface":
+            k = float(len(self._sss))
+            self._sss.append(dict(sigma_a=np.asarray(sigma_a, np.float32),
+                                  sigma_s=np.asarray(sigma_s, np.float32),
+                                  scale=float(sss_scale), g=float(g), eta=float(eta)))
+        if kind == "measured":
+            k = float(measured)
+        eta_tab = k_tab = -1.0
+        if eta_spectrum is not None:
+            eta_tab = float(self.add_spectrum_table(eta_spectrum))
+            eta = float(np.median(self._spec_tables[int(eta_tab)]))
+        if k_spectrum is not None:
+            k_tab = float(self.add_spectrum_table(k_spectrum))
+            k = float(np.median(self._spec_tables[int(k_tab)]))
+        second_rough = roughness if beta_n is None else beta_n
+        params = np.array([roughness, second_rough, eta, k, transmittance, float(texture),
+                           float(mix_materials[0]), float(mix_materials[1]), mix_amount,
+                           coat_roughness, eta_tab, k_tab], np.float32)
         self._materials.append(dict(
             type=kinds[kind], reflectance=np.asarray(reflectance, np.float32),
             params=params))
         return len(self._materials) - 1
+
+    def add_measured_brdf(self, table_rgb) -> int:
+        """A measured BRDF: an (No, Ni, Np, 3) RGB grid over (mu_o, mu_i,
+        dphi) (scatter/measured.tabulate, bsdf_to_table, load_table) ->
+        its id for add_material("measured", measured=id). The tables of one
+        scene share a resolution."""
+        self._measured.append(np.asarray(table_rgb, np.float32))
+        return len(self._measured) - 1
+
+    def add_spectrum_table(self, spec) -> int:
+        """A named spectrum (name or .spd path), (lam, val) pair or dense
+        (471,) array -> its row in spec_tables; one row per name."""
+        from ..core import named_spectra
+
+        key = spec if isinstance(spec, str) else None
+        if key is not None and key in self._spec_names:
+            return self._spec_names[key]
+        dense = (np.asarray(spec, np.float32)
+                 if isinstance(spec, np.ndarray) and spec.ndim == 1
+                 and spec.shape[0] == named_spectra.DENSE_N
+                 else named_spectra.dense(spec))
+        self._spec_tables.append(dense.astype(np.float32))
+        idx = len(self._spec_tables) - 1
+        if key is not None:
+            self._spec_names[key] = idx
+        return idx
+
+    def _build_sss(self) -> dict:
+        """The subsurface tables: one beam-diffusion table per subsurface
+        material, built with its g and eta, and its sigma chromas as
+        sigmoid-poly coefficients with scales (the JAX builder's layout;
+        nothing without a subsurface material)."""
+        if not self._sss:
+            return {}
+        from ..scatter import bssrdf
+
+        ca, sca = rgb2spec.rgb_to_coeffs_host(np.stack([m["sigma_a"] for m in self._sss]))
+        cs, scs = rgb2spec.rgb_to_coeffs_host(np.stack([m["sigma_s"] for m in self._sss]))
+        scale = np.array([m["scale"] for m in self._sss], np.float32)
+        tabs = [bssrdf.compute_beam_diffusion_table(m["g"], m["eta"]) for m in self._sss]
+        return dict(
+            sss_coeffs_a=ca.astype(np.float32), sss_scale_a=(sca * scale).astype(np.float32),
+            sss_coeffs_s=cs.astype(np.float32), sss_scale_s=(scs * scale).astype(np.float32),
+            sss_g=np.array([m["g"] for m in self._sss], np.float32),
+            sss_profile=np.stack([t.profile for t in tabs]),
+            sss_cdf=np.stack([t.cdf for t in tabs]),
+            sss_rho_eff=np.stack([t.rho_eff for t in tabs]),
+            sss_radius=tabs[0].radius, sss_rho=tabs[0].rho)
 
     def add_uniform_infinite_light(self, radiance_rgb=(1, 1, 1),
                                    scale: float = 1.0) -> int:
@@ -291,13 +429,14 @@ class SceneBuilder:
     def set_camera_medium(self, medium: int) -> None:
         self._camera_medium = int(medium)
 
-    def add_mesh(self, vertices, faces, material: int, normals=None,
+    def add_mesh(self, vertices, faces, material: int, normals=None, uvs=None,
                  emission_rgb=None, emission_scale: float = 1.0,
                  two_sided: bool = False, med_inside: int = -1,
                  med_outside: int = -1) -> None:
-        """Indexed triangle mesh (render space, no uvs: transforms and
-        textures come with the parser and texture items of the ROADMAP);
-        with emission_rgb every triangle becomes a diffuse area light.
+        """Indexed triangle mesh in render space (transforms come with the
+        parser, ROADMAP queue 1, item 4), with optional per-vertex uvs (hair
+        reads its fiber offset from v); with emission_rgb every triangle
+        becomes a diffuse area light.
         med_inside / med_outside are the media on the side the geometric
         normal points away from / toward; material -1 makes the mesh a pure
         medium boundary."""
@@ -312,7 +451,8 @@ class SceneBuilder:
             n = np.repeat(ng[:, None, :], 3, axis=1)
         self._tri_p.append(p)
         self._tri_n.append(n.astype(np.float32))
-        self._tri_uv.append(np.zeros((len(faces), 3, 2), np.float32))
+        self._tri_uv.append(np.zeros((len(faces), 3, 2), np.float32) if uvs is None
+                            else np.asarray(uvs, np.float32)[faces])
         self._tri_mat.append(np.full(len(faces), material, np.int32))
         self._tri_med.append((int(med_inside), int(med_outside)))
         self._tri_emit.append(
@@ -322,7 +462,8 @@ class SceneBuilder:
     def add_sphere(self, center, radius, material, n_theta=32, n_phi=64,
                    emission_rgb=None, **kw):
         """Tessellated sphere (same tessellation as the JAX builder); **kw
-        goes to add_mesh (med_inside, med_outside)."""
+        goes to add_mesh (uvs over the (n_theta+1) x (n_phi+1) vertex grid,
+        med_inside, med_outside)."""
         if emission_rgb is not None:
             raise NotImplementedError("sphere area lights are not ported yet "
                                       "(ROADMAP queue 1, item 2)")
@@ -410,10 +551,31 @@ class SceneBuilder:
             light_scale = np.zeros(0, np.float32)
             light_params = np.zeros((0, N_LIGHT_PARAMS), np.float32)
 
+        if self._measured:
+            from ..scatter import measured as measured_mod
+
+            measured_coeffs = np.stack([measured_mod.table_to_coeffs(t)
+                                        for t in self._measured])
+            measured_alpha = np.array([measured_mod.fit_ggx_alpha(t) for t in self._measured],
+                                      np.float32)
+        else:
+            measured_coeffs = np.zeros((1, 2, 2, 2, 4), np.float32)
+            measured_alpha = np.ones((1,), np.float32)
+
         lo = tri_p[:n].reshape(-1, 3).min(0)
         hi = tri_p[:n].reshape(-1, 3).max(0)
         out = CompiledScene(
-            **self._build_media(), tri_med_inside=tri_med_in, tri_med_outside=tri_med_out,
+            **self._build_media(), **self._build_sss(),
+            measured_coeffs=measured_coeffs, measured_alpha=measured_alpha,
+            spec_tables=np.stack(self._spec_tables) if self._spec_tables else None,
+            feat_mix=bool(np.any(mat_type == MAT_MIX)),
+            feat_hair=bool(np.any(mat_type == MAT_HAIR)),
+            feat_measured=bool(np.any(mat_type == MAT_MEASURED)),
+            feat_spectral=bool(self._spec_tables),
+            feat_subsurface=bool(np.any(mat_type == MAT_SUBSURFACE)),
+            feat_coated=bool(np.any((mat_type == MAT_COATED_DIFFUSE)
+                                    | (mat_type == MAT_COATED_CONDUCTOR))),
+            tri_med_inside=tri_med_in, tri_med_outside=tri_med_out,
             tri_p=tri_p, tri_n=tri_n, tri_uv=tri_uv, tri_mat=tri_mat,
             tri_light=tri_light, n_tris=n,
             mat_type=mat_type, mat_coeffs=mat_coeffs, mat_scale=mat_scale,

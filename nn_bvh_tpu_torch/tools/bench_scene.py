@@ -199,24 +199,119 @@ def volpath_bench_config():
 FOG_DEPTH = 100  # the crown's maxdepth
 
 
-def build_fog_scene(size: int = BENCH_SIZE, interface: bool = False):
+def build_fog_scene(size: int = BENCH_SIZE, interface=False):
     """The `volpath_fog` scene: tests/test_phased_wave.py:29-38's fog sphere
     (a diffuse sphere filled with a homogeneous scattering medium, a floor,
     an emissive quad) with that test's camera, at the bench's 400x400 ->
     (host scene, DeviceBVH, camera). The diffuse sphere is opaque, so no ray
     reaches its medium; interface=True makes the sphere a pure medium
-    boundary (material -1), so rays enter the fog and scatter in it."""
+    boundary (material -1), so rays enter the fog and scatter in it;
+    interface="glass" makes it a smooth dielectric (eta 1.33) holding the
+    fog, so rays enter the fog by real transmission."""
     b = scene_mod.SceneBuilder()
     m = b.add_material("diffuse", reflectance=(0.6, 0.5, 0.4))
     fog = b.add_medium(sigma_a=(0.05, 0.05, 0.05), sigma_s=(0.3, 0.3, 0.3))
-    b.add_sphere((0, 1, 0), 0.8, -1 if interface else m, n_theta=10, n_phi=20,
-                 med_inside=fog)
+    if interface == "glass":
+        shell = b.add_material("dielectric", eta=1.33)
+    else:
+        shell = -1 if interface else m
+    b.add_sphere((0, 1, 0), 0.8, shell, n_theta=10, n_phi=20, med_inside=fog)
     b.add_quad((-5, 0, -5), (5, 0, -5), (5, 0, 5), (-5, 0, 5), m)
     b.add_quad((-1, 4, -1), (1, 4, -1), (1, 4, 1), (-1, 4, 1), m,
                emission_rgb=(1, 1, 1), emission_scale=10.0, two_sided=True)
     sc, dbvh, _ = accel.build_scene_bvh(b.build())
     cam = camera_mod.make_perspective(xf.look_at((0, 2, -4), (0, 1, 0), (0, 1, 0)), fov=50.0,
                                       width=size, height=size)
+    return sc, dbvh, cam
+
+
+MATERIAL_KINDS = ("dielectric", "rough dielectric", "thin dielectric", "diffuse transmission",
+                  "coated diffuse", "coated conductor", "mix", "hair", "measured",
+                  "subsurface", "gold", "diffuse")
+
+
+def ggx_rgb(wo, wi, alpha: float = 0.3, rgb=(0.9, 0.6, 0.3)):
+    """A GGX reflection lobe with a constant Fresnel colour, numpy, for
+    measured.tabulate: D G rgb / (4 cos_o cos_i) -> (..., 3)."""
+    wm = wo + wi
+    wm = wm / np.maximum(np.linalg.norm(wm, axis=-1, keepdims=True), 1e-12)
+    a2 = alpha * alpha
+    d = a2 / (np.pi * (wm[..., 2] ** 2 * (a2 - 1.0) + 1.0) ** 2)
+
+    def lam(w):
+        c2 = np.maximum(w[..., 2] ** 2, 1e-12)
+        return 0.5 * (np.sqrt(1.0 + a2 * (1.0 - c2) / c2) - 1.0)
+
+    g = 1.0 / (1.0 + lam(wo) + lam(wi))
+    f = d * g / np.maximum(4.0 * wo[..., 2] * wi[..., 2], 1e-6)
+    return (f[..., None] * np.asarray(rgb, np.float32)).astype(np.float32)
+
+
+def add_material_kinds(b, coated: bool = True) -> list:
+    """The material scene's twelve materials, in MATERIAL_KINDS order, added
+    to b (a SceneBuilder of either package: the same calls build the same
+    tables) -> their ids. coated=False makes the two coated ones diffuse."""
+    from ..scatter import measured
+
+    diffuse = b.add_material("diffuse", reflectance=(0.6, 0.5, 0.4))
+    metal = b.add_material("conductor", reflectance=(0.9, 0.75, 0.5), roughness=0.15)
+    table = b.add_measured_brdf(measured.tabulate(ggx_rgb, (16, 16, 16)))
+    coat = (lambda kind, **kw: b.add_material(kind, **kw)) if coated else \
+        (lambda kind, **kw: b.add_material("diffuse", reflectance=kw["reflectance"]))
+    return [
+        b.add_material("dielectric", eta=1.5),
+        b.add_material("dielectric", eta=1.5, roughness=0.2),
+        b.add_material("thindielectric", eta=1.5),
+        b.add_material("diffusetransmission", reflectance=(0.5, 0.6, 0.7)),
+        coat("coateddiffuse", reflectance=(0.7, 0.3, 0.2), roughness=0.1),
+        coat("coatedconductor", reflectance=(0.9, 0.75, 0.5), roughness=0.1),
+        b.add_material("mix", mix_materials=(diffuse, metal), mix_amount=0.5),
+        b.add_material("hair", reflectance=(0.4, 0.25, 0.1), roughness=0.3, eta=1.55),
+        b.add_material("measured", measured=table),
+        b.add_material("subsurface", sigma_a=(0.02, 0.04, 0.07), sigma_s=(2.2, 2.6, 3.0),
+                       sss_scale=2.0, eta=1.33),
+        b.add_material("conductor", reflectance=(1.0, 1.0, 1.0), roughness=0.1,
+                       eta_spectrum="metal-Au-eta", k_spectrum="metal-Au-k"),
+        diffuse,
+    ]
+
+
+def sphere_uvs(n_theta: int, n_phi: int) -> np.ndarray:
+    """Per-vertex (phi / 2 pi, theta / pi) of SceneBuilder.add_sphere's
+    vertex grid: hair reads its fiber offset from v."""
+    tt, pp = np.meshgrid(np.linspace(0, np.pi, n_theta + 1),
+                         np.linspace(0, 2 * np.pi, n_phi + 1), indexing="ij")
+    return np.stack([pp / (2 * np.pi), tt / np.pi], -1).reshape(-1, 2).astype(np.float32)
+
+
+def material_scene(b, n_spheres: int = 24, n_theta: int = 24, n_phi: int = 48,
+                   coated: bool = True):
+    """Fill b (a SceneBuilder of either package) with the bench geometry
+    (bench.py's RandomState(42) spheres, floor and emissive quad) whose
+    spheres cycle through add_material_kinds -> b."""
+    rs = np.random.RandomState(42)
+    mats = add_material_kinds(b, coated)
+    floor = b.add_material("diffuse", reflectance=(0.5, 0.5, 0.5))
+    uvs = sphere_uvs(n_theta, n_phi)
+    for i in range(n_spheres):
+        c = (rs.rand(3) - 0.5) * np.array([6.0, 2.0, 6.0]) + np.array([0, 1.2, 0])
+        r = 0.25 + 0.45 * rs.rand()
+        b.add_sphere(c, r, mats[i % len(mats)], n_theta=n_theta, n_phi=n_phi, uvs=uvs)
+    b.add_quad((-8, 0, -8), (8, 0, -8), (8, 0, 8), (-8, 0, 8), floor)
+    b.add_quad((-2, 6, -2), (2, 6, -2), (2, 6, 2), (-2, 6, 2), floor,
+               emission_rgb=(1.0, 0.9, 0.8), emission_scale=20.0, two_sided=True)
+    return b
+
+
+def build_material_scene(size: int = BENCH_SIZE, coated: bool = True):
+    """The material scene: the bench geometry (52,996 triangles, floor,
+    emissive quad) with its 24 spheres cycling through the twelve materials
+    of MATERIAL_KINDS (coated=False: the coated spheres diffuse), SAH BVH,
+    the bench camera -> (host scene, DeviceBVH, camera)."""
+    sc, dbvh, _ = accel.build_scene_bvh(material_scene(scene_mod.SceneBuilder(),
+                                                       coated=coated).build())
+    cam = camera_mod.make_perspective(
+        xf.look_at((0, 3.0, -9.0), (0, 1.0, 0), (0, 1, 0)), fov=50.0, width=size, height=size)
     return sc, dbvh, cam
 
 

@@ -31,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import vecmath as vm, sampling, spectrum, samplers
+from ..core import vecmath as vm, sampling, spectrum, samplers, rng
 from ..geometry import scene as scene_mod, texture
 from ..scatter import bxdf, lights, lightsamplers
 from ..accel import dispatch
@@ -171,6 +171,7 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
 
     n_lights = scene.n_lights
     mat_all = bxdf.material_records(scene)
+    kinds = bxdf.scene_kinds(scene)
     if n_lights > 0:
         light_all = lights.light_records(scene)
         is_inf = scene.light_type == scene_mod.LIGHT_UNIFORM_INFINITE
@@ -226,9 +227,19 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
         active = found
         cone_at_hit = cone_w + sp.t * cone_s
         foot = texture.cone_foot_log2(cone_at_hit, vm.absdot(d, sp.ns), sp.uv_scale)
-        ctx = bxdf.gather_material(scene, sp.mat, lam, mat_all, sp.uv, foot_log2=foot)
+        u_mix = (rng.hash_float(pix, sidx, depth, 0x77) if bxdf.has_mix(scene) else None)
+        ctx = bxdf.gather_material(scene, sp.mat, lam, mat_all, sp.uv, u_mix,
+                                   foot_log2=foot, kinds=kinds)
         active = active & (sp.mat >= 0)
         wo_local = vm.to_local(sp.ns, wo)
+        if scene.feat_subsurface:
+            # a subsurface lane mirrors at its interface or moves to a
+            # sampled exit point (wavefront/subsurface.py)
+            from . import subsurface
+
+            sp, ctx, wo_local, beta, active = subsurface.transition(
+                scene, isect_closest, _shading_point, sp, wo, wo_local, ctx, lam, beta,
+                active, pix, sidx, depth)
 
         # direct lighting
         if n_lights > 0:
@@ -263,7 +274,12 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
         bs = bxdf.sample(ctx, wo_local, uc, torch.stack([ubu, ubv], -1))
         wi_world = vm.from_local(sp.ns, bs.wi)
         cos_b = vm.absdot(wi_world, sp.ns)
-        inv_pdf_b = torch.where(bs.valid, 1.0 / torch.clamp(bs.pdf, min=1e-20), 0.0)
+        # double-where: an invalid lane's pdf (0, clamped) must not reach the
+        # reciprocal, whose gradient there is 0 * inf = NaN once the pdf
+        # depends on a material coefficient (hair's does)
+        inv_pdf_b = torch.where(bs.valid,
+                                1.0 / torch.clamp(torch.where(bs.valid, bs.pdf, 1.0), min=1e-20),
+                                0.0)
         beta_new = beta * bs.f * (cos_b * inv_pdf_b)[..., None]
         active = active & bs.valid & (beta_new > 0).any(-1)
         beta = torch.where(active[..., None], beta_new, beta)

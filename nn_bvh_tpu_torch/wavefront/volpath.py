@@ -96,6 +96,7 @@ class VolCtx(NamedTuple):
     ls_tables: lightsamplers.LightSamplerTables
     isect: dispatch.Intersectors
     mat_all: torch.Tensor
+    kinds: frozenset                  # the scene's material tags (bxdf.scene_kinds)
     med_all: torch.Tensor | None
     light_all: torch.Tensor | None
     inf_sel_pmf: torch.Tensor | None  # selection pmf of the infinite lights
@@ -121,7 +122,7 @@ def make_context(scene, cam, sampler_cfg, cfg: IntegratorConfig, ls_tables,
     blo = scene.bounds[0]
     return VolCtx(
         scene=scene, cam=cam, sampler_cfg=sampler_cfg, cfg=cfg, ls_tables=ls_tables,
-        isect=isect, mat_all=bxdf.material_records(scene),
+        isect=isect, mat_all=bxdf.material_records(scene), kinds=bxdf.scene_kinds(scene),
         med_all=media.medium_records(scene) if scene.n_media > 0 else None,
         light_all=light_all, inf_sel_pmf=inf_sel_pmf, has_inf=has_inf,
         do_resort=cfg.resort and isect.backend in dispatch.CUDA_BACKENDS,
@@ -477,7 +478,9 @@ def bounce(ctx: VolCtx, depth: int, state: VolState, allow_scatter: bool = True)
     wo = -d
     cone_at_hit = cone_w + sp.t * cone_s
     foot = texture.cone_foot_log2(cone_at_hit, vm.absdot(d, sp.ns), sp.uv_scale)
-    ctx_mat = bxdf.gather_material(scene, sp.mat, lam, ctx.mat_all, sp.uv, foot_log2=foot)
+    u_mix = _rand(ctx, pix, sidx, depth, 31) if bxdf.has_mix(scene) else None
+    ctx_mat = bxdf.gather_material(scene, sp.mat, lam, ctx.mat_all, sp.uv, u_mix,
+                                   foot_log2=foot, kinds=ctx.kinds)
     is_interface = surf_found & (sp.mat < 0)
     surf_lane = surf_found & (sp.mat >= 0)
     g_med = (media.gather_medium(scene, cur_med, lam, ctx.med_all).g if has_media
@@ -510,7 +513,9 @@ def bounce(ctx: VolCtx, depth: int, state: VolState, allow_scatter: bool = True)
         pdf_fwd = torch.where(scattered, pdf_ph, pdf_fwd)
 
     # throughput (surface only: medium scatter and interfaces keep beta)
-    f_over = bs.f * (cos_b / torch.clamp(bs.pdf, min=1e-20))[..., None]
+    # double-where as in the Path wave (the gradient of an invalid lane's
+    # clamped pdf is 0 * inf = NaN)
+    f_over = bs.f * (cos_b / torch.clamp(torch.where(bs.valid, bs.pdf, 1.0), min=1e-20))[..., None]
     beta = torch.where((surf_lane & bs.valid)[..., None], beta * f_over, beta)
     took_bounce = scattered | surf_lane
     r_l = torch.where(took_bounce[..., None], r_u / torch.clamp(pdf_fwd, min=1e-20)[..., None],

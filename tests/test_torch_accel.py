@@ -285,11 +285,25 @@ def test_dispatch_backend_follows_device(small_scene):
 
 
 def test_scene_from_numpy_refuses_unported_features():
-    b = j_scene.SceneBuilder()
-    glass = b.add_material("dielectric")
-    b.add_quad((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0), glass)
-    sc, dbvh, _ = j_accel.build_scene_bvh(b.build())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scene.scene_from_numpy(sc._asdict(), dbvh._asdict(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scene.SceneBuilder().add_material("dielectric")
+    """Textures (a textured material, a texture-driven mix amount) and point
+    lights are still unported: refused, naming their ROADMAP item."""
+    def jax_scene(feature):
+        b = j_scene.SceneBuilder()
+        m = b.add_material("diffuse")
+        if feature == "texture":
+            m = b.add_material("diffuse", texture=b.add_texture_checker())
+        elif feature == "mix_texture_amount":
+            m = b.add_material("mix", mix_materials=(m, m), mix_amount=-1.0)
+        else:
+            b.add_point_light((0, 2, 0))
+        b.add_quad((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0), m)
+        sc, dbvh, _ = j_accel.build_scene_bvh(b.build())
+        return sc, dbvh
+
+    for feature, item in (("texture", "item 3"), ("mix_texture_amount", "item 3"),
+                          ("point_light", "item 2")):
+        sc, dbvh = jax_scene(feature)
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
+            scene.scene_from_numpy(sc._asdict(), dbvh._asdict(), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
+        scene.SceneBuilder().add_material("diffuse", texture=0)
