@@ -136,7 +136,25 @@ points, once per traversal backend, and checks it:
    1.33, holding the fog): time, launches, phases, the phased wave against
    trace_wave_vol (1e-5), lane scatterings in the fog > 0, and the lanes
    whose medium changed on real transmission through the glass > 0. Each
-   line ends with the seconds since phase 16 began.
+   line ends with the seconds since phase 16 began;
+17. lights, light samplers, samplers, quadrics and motion blur, each wave
+   through make_wave_fn on cuda_bvh4 at 400x400 over the bench geometry
+   (52,996 triangles): `bench_scene.build_lights_scene` (one bench sphere
+   an analytic sphere light, point, spot and distant lights, a 128x128
+   equal-area sky map, four analytic quadrics; Path MIS, depth 4, Halton
+   16 spp) with the light BVH (17.1), under the other CUDA backends
+   (17.2), seen through a portal with the exhaustive sampler (17.3), with
+   kind="volpath" (the phased wave, 17.4); `build_motion_scene` (every
+   other sphere moving, a panning camera; Sobol) with every batch held
+   against the plain traversal on the wave's lerped tables (17.5); one
+   wave per new sampler kind (stratified, halton, zsobol, pmj02bn,
+   fullsobol) and their get_1d/get_2d on the card bit-equal to the CPU's
+   on 65,536 (pixel, sample, dim) triples (17.6). For each scene: ms a
+   wave (CUDA events, the median of 3 after a warm-up), CUDA kernels and
+   copies a wave (torch.profiler), bvh4_traverse launches (equal to the
+   traversal calls, no other kernel), peak memory, the image finite with
+   mean > 0, and the same seed through the plain traversal within phase 5's
+   rule (17.2: each backend's film against cuda_bvh4's).
 
 Any failure raises (exit code != 0). The last two lines of standard output
 are a JSON record of the kernels and {"ok": true, "device": {...}}.
@@ -934,6 +952,187 @@ def phase_materials(torch, dev):
     print(f"phase 16: done in {time.perf_counter() - t0:.0f} s", flush=True)
 
 
+def median_wave_ms(torch, wave, film, first: int, n: int = 3):
+    """Waves first .. first+n-1, each between its own CUDA events -> (film,
+    median ms)."""
+    times = []
+    for s in range(first, first + n):
+        ms, film = event_ms(torch, lambda: wave(film, s))
+        times.append(ms)
+    return film, sorted(times)[n // 2]
+
+
+def lights_wave(torch, label, sc, dbvh, cam, cfg, scfg, dev, check_batches=False):
+    """Phase 17's checks and readings of one scene through make_wave_fn on
+    cuda_bvh4 -> (film XYZ of sample 0, bvh4_traverse launches of the timed
+    waves). The same seed through the plain traversal agrees by phase 5's
+    rule; with check_batches every batch of the kernel is also held against
+    the plain traversal on the same batch (bench_scene.CheckedIntersectors)."""
+    from nn_bvh_tpu_torch.accel import dispatch
+    from nn_bvh_tpu_torch.tools import bench_scene
+    from nn_bvh_tpu_torch.wavefront import film as film_mod, integrator
+
+    t0 = time.perf_counter()
+    make_film = lambda: film_mod.make_film(cam.height, cam.width, dev)
+    isect = dispatch.make_intersectors(sc, dbvh, dev)
+    check(isect.backend == "cuda_bvh4", f"CUDA picked {isect.backend}")
+    wave = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=isect)
+    film = wave(make_film(), 0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_counts()
+    isect.n_calls = 0
+    film, ms = median_wave_ms(torch, wave, film, 1)
+    counts = launch_counts()
+    launches = counts.get("bvh4_traverse", 0)
+    check(set(counts) == {"bvh4_traverse"} and launches == isect.n_calls,
+          f"{label}: launches {counts} for {isect.n_calls} traversal calls")
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    img = film_mod.develop(film)
+    mean = float(img.mean())
+    check(bool(torch.isfinite(img).all()) and mean > 0, f"{label}: bad image, mean {mean}")
+    n_k = cuda_kernel_count(torch, lambda: wave(film, 4))
+    plain = dispatch.make_intersectors(sc, dbvh, dev, backend="plain")
+    k_isect = bench_scene.CheckedIntersectors(isect, plain, label) if check_batches else isect
+    f_k = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=k_isect)(make_film(), 0)
+    f_p = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=plain)(make_film(), 0)
+    close, rel = film_agreement(f_k.xyz, f_p.xyz)
+    check(close >= 0.995 and rel <= 1e-3, f"{label}: film agrees with the plain traversal on "
+          f"{close:.5f} of pixels, mean rel diff {rel:.3g}")
+    extra = ""
+    if check_batches:
+        extra = (f"; the kernel held against plain on all {len(k_isect.sizes)} batches of "
+                 f"wave 0, contract met, {k_isect.ties} tie lanes")
+    print(f"phase 17: {label}: {ms:.1f} ms a wave (CUDA events, median of 3 after a "
+          f"warm-up), {launches / 3:.1f} bvh4_traverse launches a wave = traversal calls, "
+          f"CUDA kernels and copies a wave (torch.profiler): "
+          f"{n_k if n_k is not None else 'not measured'}, peak memory {peak / 2**20:.1f} MiB "
+          f"above {base_mem / 2**20:.1f} MiB; image mean {mean:.6f}; the same seed through "
+          f"the plain traversal: film XYZ agrees on {close:.6f} of pixels, mean rel diff "
+          f"{rel:.3g}{extra} [{time.perf_counter() - t0:.0f} s]", flush=True)
+    return f_k.xyz, launches
+
+
+def peak_mib(torch, fn) -> float:
+    """MiB that one call of fn holds at its peak above what was allocated."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def phase_lights(torch, dev) -> int:
+    """Phase 17 (see the module doc) -> bvh4_traverse launches of its
+    timed waves."""
+    from nn_bvh_tpu_torch.accel import dispatch
+    from nn_bvh_tpu_torch.core import samplers
+    from nn_bvh_tpu_torch.tools import bench_scene
+    from nn_bvh_tpu_torch.wavefront import film as film_mod, integrator
+
+    t0 = time.perf_counter()
+    total = 0
+    sc, dbvh, cam = bench_scene.build_lights_scene("image")
+    check(sc.n_tris == 52996, f"lights scene has {sc.n_tris} triangles")
+    print(f"phase 17: lights scene {sc.n_tris} triangles, {sc.n_quadrics} quadrics, "
+          f"{sc.n_lights} lights (tags {sorted(set(sc.light_type.tolist()))}), sky map "
+          f"{tuple(sc.env_luminance.shape)}, built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cfg, scfg = bench_scene.lights_config("image")
+    ref, n = lights_wave(torch, "17.1 lights, image env, light BVH", sc, dbvh, cam, cfg, scfg,
+                         dev)
+    total += n
+
+    for backend in ("cuda_binary", "cuda_binary_deep", "cuda_bvh8"):
+        isect = dispatch.make_intersectors(sc, dbvh, dev, backend=backend)
+        reset_counts()
+        xyz = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=isect)(
+            film_mod.make_film(cam.height, cam.width, dev), 0).xyz
+        counts = launch_counts()
+        name = [k[0] for k in KERNELS if k[1] == backend][0]
+        check(set(counts) == {name} and counts[name] == isect.n_calls,
+              f"17.2 {backend}: launches {counts} for {isect.n_calls} calls")
+        close, rel = film_agreement(xyz, ref)
+        check(close >= 0.995 and rel <= 1e-3, f"17.2 {backend}: film agrees with cuda_bvh4 on "
+              f"{close:.5f} of pixels, mean rel diff {rel:.3g}")
+        print(f"phase 17: 17.2 lights scene through {backend}: {counts[name]} launches = "
+              f"traversal calls, film vs cuda_bvh4: {close:.6f} of pixels, mean rel diff "
+              f"{rel:.3g}", flush=True)
+
+    vcfg, vscfg = bench_scene.lights_config("image", kind="volpath")
+    check(hasattr(integrator.make_wave_fn(sc, dbvh, cam, vscfg, vcfg, device=dev), "phases"),
+          "17.4: make_wave_fn did not take the phased wave")
+    total += lights_wave(torch, "17.4 lights, image env, VolPath (phased wave)", sc, dbvh, cam,
+                         vcfg, vscfg, dev)[1]
+
+    psc, pdbvh, pcam = bench_scene.build_lights_scene("portal")
+    pcfg, pscfg = bench_scene.lights_config("portal")
+    total += lights_wave(torch, "17.3 lights, portal env, exhaustive sampler", psc, pdbvh, pcam,
+                         pcfg, pscfg, dev)[1]
+
+    # the two lane-by-table tensors of this slice alone, at a wave's width:
+    # the env map's conditional rows and the exhaustive importance matrix
+    from nn_bvh_tpu_torch.geometry import scene as scene_mod
+    from nn_bvh_tpu_torch.scatter import lights, lightsamplers
+
+    R = cam.width * cam.height
+    g = torch.Generator(device=dev).manual_seed(17)
+    tsc, tpsc = scene_mod.to_device(sc, dev), scene_mod.to_device(psc, dev)
+    u2 = torch.rand(R, 2, generator=g, device=dev)
+    lo, hi = tsc.bounds
+    p = lo + torch.rand(R, 3, generator=g, device=dev) * (hi - lo)
+    ex = lightsamplers.build(tpsc, "exhaustive", dev)
+    env_mib = peak_mib(torch, lambda: lights.env_sample_dir(tsc, u2))
+    ex_mib = peak_mib(torch, lambda: lightsamplers.sample_ctx(ex, p, u2[:, 0]))
+    he, we = tsc.env_luminance.shape
+    print(f"phase 17: peak memory of one call on {R} lanes: env_sample_dir {env_mib:.1f} MiB "
+          f"(its conditional rows ({R}, {we + 1}) float32: {R * (we + 1) * 4 / 2**20:.1f} MiB), "
+          f"exhaustive sample_ctx {ex_mib:.1f} MiB (its importances ({R}, "
+          f"{ex.node_phi.shape[0]}) float32: {R * ex.node_phi.shape[0] * 4 / 2**20:.1f} MiB)",
+          flush=True)
+
+    msc, mdbvh, mcam = bench_scene.build_motion_scene()
+    check(msc.tri_p_end is not None and mcam.motion_keys is not None, "17.5: nothing moves")
+    mcfg, mscfg = bench_scene.bench_config()
+    total += lights_wave(torch, "17.5 motion scene (Sobol)", msc, mdbvh, mcam, mcfg, mscfg, dev,
+                         check_batches=True)[1]
+
+    R = 65536
+    gen = torch.Generator().manual_seed(17)
+    pix = torch.randint(0, cam.width * cam.height, (R,), generator=gen, dtype=torch.int32)
+    smp = torch.randint(0, 16, (R,), generator=gen, dtype=torch.int32)
+    for kind in bench_scene.SAMPLER_KINDS:
+        kcfg, kscfg = bench_scene.lights_config("image", sampler=kind)
+        isect = dispatch.make_intersectors(sc, dbvh, dev)
+        wave = integrator.make_wave_fn(sc, dbvh, cam, kscfg, kcfg, isect=isect)
+        film = wave(film_mod.make_film(cam.height, cam.width, dev), 0)  # warm-up
+        reset_counts()
+        film, ms = median_wave_ms(torch, wave, film, 1)
+        total += launch_counts().get("bvh4_traverse", 0)
+        img = film_mod.develop(film)
+        check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0, f"17.6 {kind}: bad image")
+        n_k = cuda_kernel_count(torch, lambda: wave(film, 4))
+        dims = (0, 2, 5, 12, 33, 64)
+        dcfg = samplers.to_device(kscfg, dev)
+        for dim in dims:
+            for fn in (samplers.get_1d, samplers.get_2d):
+                on_card = fn(dcfg, pix.to(dev), smp.to(dev), dim)
+                on_cpu = fn(kscfg, pix, smp, dim)
+                for a, b in zip(*(x if isinstance(x, tuple) else (x,)
+                                  for x in (on_card, on_cpu))):
+                    check(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)),
+                          f"17.6 {kind}: {fn.__name__} dim {dim} differs on the card")
+        print(f"phase 17: 17.6 sampler {kind}: {ms:.1f} ms a wave (median of 3), CUDA kernels "
+              f"and copies a wave (torch.profiler): {n_k if n_k is not None else 'not measured'}, "
+              f"image mean {float(img.mean()):.6f}; get_1d/get_2d on the card bit-equal to the "
+              f"CPU on {R} (pixel, sample) pairs x dims {dims}", flush=True)
+    print(f"phase 17: done in {time.perf_counter() - t0:.0f} s, {total} bvh4_traverse launches "
+          f"in its timed waves", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1019,6 +1218,7 @@ def main() -> int:
     phase_gradients(torch, sc, dbvh, cam, dev)
     phase_volpath(torch, sc, dbvh, cam, dev)
     phase_materials(torch, dev)
+    out[0]["launches"] += phase_lights(torch, dev)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,10 +11,16 @@ from .traverse import DeviceBVH, Hit
 
 def build_scene_bvh(scene, method: str = "sah"):
     """Binned-SAH BVH over a host CompiledScene, triangles reordered so every
-    leaf is a contiguous range -> (scene_reordered, DeviceBVH, BVH)."""
+    leaf is a contiguous range -> (scene_reordered, DeviceBVH, BVH). An
+    animated scene gets one tree over the union of both shutter keyframes'
+    triangle bounds, conservative at every shutter time."""
     if method not in ("sah", "sah_numpy"):
         raise NotImplementedError(f"BVH builder {method!r} is not ported yet")
-    lo, hi = triangle_bounds(np.asarray(scene.tri_p)[:scene.n_tris])
+    n = scene.n_tris
+    lo, hi = triangle_bounds(np.asarray(scene.tri_p)[:n])
+    if scene.tri_p_end is not None:
+        lo2, hi2 = triangle_bounds(np.asarray(scene.tri_p_end)[:n])
+        lo, hi = np.minimum(lo, lo2), np.maximum(hi, hi2)
     return apply_bvh_to_scene(scene, build_sah(lo, hi))
 
 
@@ -46,7 +52,12 @@ def apply_bvh_to_scene(scene, bvh: BVH):
     if scene.tri_med_inside is not None:
         scene2 = scene2.replace(tri_med_inside=perm(scene.tri_med_inside),
                                 tri_med_outside=perm(scene.tri_med_outside))
+    if scene.tri_p_end is not None:
+        scene2 = scene2.replace(tri_p_end=perm(scene.tri_p_end),
+                                tri_n_end=perm(scene.tri_n_end))
     scene2 = scene2.replace(tri_shade=scene_mod.make_tri_shade(scene2))
+    if scene.tri_p_end is not None:
+        scene2 = scene2.replace(tri_shade_end=scene_mod.make_tri_shade(scene2, use_end=True))
     dbvh = DeviceBVH(node_lo=bvh.node_lo, node_hi=bvh.node_hi,
                      node_meta=bvh.node_meta, n_nodes=int(bvh.n_nodes))
     return scene2, dbvh, bvh

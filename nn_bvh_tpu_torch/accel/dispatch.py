@@ -31,6 +31,15 @@ kernel with its plain version; they are never chosen automatically. The
 wavefront integrator re-sorts its lane state once per bounce for every CUDA
 backend; `sort=True` wraps the callables in the same key's sort -> traverse
 -> unsort instead, for standalone batches.
+
+Analytic quadrics (geometry/quadrics.py) stay out of the BVH: after the
+triangle traversal (and its unsort) every ray is tested against every
+quadric as an (R, Q) broadcast and the nearer hit wins, on every backend;
+quadric prim ids are quad_base + q. Object motion blur lerps the vertices
+once a wave (wavefront/integrator.make_wave_fn); `set_triangles` then
+rebuilds the triangle table on the device from them, with the subtraction
+`bvh4.pack_tris_cuda` makes, while the node table, built over the union of
+both keyframes' bounds, stays as it is.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import numpy as np
 import torch
 
 from . import binary, binary_kernel, bvh4, bvh4_kernel, bvh8, bvh8_kernel
+from ..geometry import quadrics as quadrics_mod
 from .traverse import Hit, traverse_binary_plain, traverse_bvh4_plain, traverse_bvh8_plain
 from ..core.rng import M32
 from ..devices import resolve_device
@@ -68,20 +78,34 @@ ENV_BACKENDS = {"bvh4": "cuda_bvh4", "binary": "cuda_binary",
 
 class Intersectors:
     """Closest-hit and any-hit callables over one scene's device tables
-    (`tables`: node table, triangle table). `n_calls` counts the traversal
-    calls made through it."""
+    (`tables`: node table, triangle table; `quads`: (quad_type,
+    quad_params) or None). `n_calls` counts the traversal calls made
+    through it."""
 
     def __init__(self, backend: str, tables: tuple, device: torch.device,
-                 sort_bounds=None):
+                 sort_bounds=None, quads=None, quad_base: int = 0):
         self.backend = backend
         self.tables = tables
         self.device = device
         self.sort_bounds = sort_bounds
+        self.quads = quads
+        self.quad_base = quad_base
         self.n_calls = 0
         self.fn = _BACKENDS[backend][1]
 
-    def _call(self, o, d, t_max, any_hit):
-        self.n_calls += 1
+    def like(self):
+        """The constructor arguments of this bundle, for a wrapper's
+        super().__init__."""
+        return dict(backend=self.backend, tables=self.tables, device=self.device,
+                    sort_bounds=self.sort_bounds, quads=self.quads,
+                    quad_base=self.quad_base)
+
+    def set_triangles(self, tri_p: torch.Tensor) -> None:
+        """Rebuild the triangle table from (N, 3, 3) vertices on the device
+        (a motion-blurred scene's vertices at a wave's shutter time)."""
+        self.tables = (self.tables[0], tri_table_device(self.backend, tri_p))
+
+    def _traverse(self, o, d, t_max, any_hit):
         if self.sort_bounds is None:
             return self.fn(*self.tables, o, d, t_max, any_hit)
         blo, bext = self.sort_bounds
@@ -90,6 +114,21 @@ class Intersectors:
                       t_max[order].contiguous(), any_hit)
         unsort = lambda x: torch.empty_like(x).index_copy_(0, order, x)
         return unsort(out) if any_hit else Hit(*map(unsort, out))
+
+    def _call(self, o, d, t_max, any_hit):
+        self.n_calls += 1
+        out = self._traverse(o, d, t_max, any_hit)
+        if self.quads is None:
+            return out
+        qtype, qparams = self.quads
+        if any_hit:
+            return out | quadrics_mod.intersect_any(qtype, qparams, o, d, t_max)
+        eff = torch.where(torch.isfinite(out.t), out.t, t_max)
+        tq, qi, u, v = quadrics_mod.intersect(qtype, qparams, o, d, eff)
+        take = qi >= 0  # tq < eff already
+        return Hit(t=torch.where(take, tq, out.t),
+                   prim=torch.where(take, self.quad_base + qi, out.prim).to(torch.int32),
+                   b1=torch.where(take, u, out.b1), b2=torch.where(take, v, out.b2))
 
     def closest(self, o, d, t_max):
         return self._call(o, d, t_max, False)
@@ -102,6 +141,20 @@ def _tri_table(backend: str, scene) -> np.ndarray:
     """Every backend but "plain" reads 16-byte records, "plain" (N, 3, 3)."""
     tri_p = np.ascontiguousarray(host(scene.tri_p), dtype=np.float32)
     return tri_p if backend == "plain" else bvh4.pack_tris_cuda(tri_p)
+
+
+def tri_table_device(backend: str, tri_p: torch.Tensor) -> torch.Tensor:
+    """_tri_table of (N, 3, 3) float32 vertices already on the device: the
+    16-byte records [v0, 0 | v1 - v0, 0 | v2 - v0, 0] subtracted in float32
+    as bvh4.pack_tris_cuda subtracts them, or the vertices for "plain"."""
+    tri_p = tri_p.contiguous()
+    if backend == "plain":
+        return tri_p
+    out = torch.zeros(tri_p.shape[0], 3, 4, dtype=torch.float32, device=tri_p.device)
+    out[:, 0, :3] = tri_p[:, 0]
+    out[:, 1, :3] = tri_p[:, 1] - tri_p[:, 0]
+    out[:, 2, :3] = tri_p[:, 2] - tri_p[:, 0]
+    return out
 
 
 def _node_table(layout: str, dbvh) -> np.ndarray:
@@ -141,9 +194,15 @@ def make_intersectors(scene, dbvh, device=None, backend: str | None = None,
         b = np.asarray(host(scene.bounds), np.float32)
         blo = torch.as_tensor(b[0], device=device)
         sort_bounds = (blo, torch.clamp(torch.as_tensor(b[1], device=device) - blo, min=1e-9))
+    quads = None
+    if int(getattr(scene, "n_quadrics", 0) or 0):
+        quads = (torch.as_tensor(host(scene.quad_type), device=device).to(torch.int32),
+                 torch.as_tensor(host(scene.quad_params), device=device).to(torch.float32))
+    # quadric prim ids start at the padded triangle count (tri_shade's
+    # appended rows)
     return Intersectors(backend, (torch.as_tensor(nodes, device=device),
                                   torch.as_tensor(tris, device=device)),
-                        device, sort_bounds)
+                        device, sort_bounds, quads=quads, quad_base=int(scene.tri_p.shape[0]))
 
 
 def _expand_bits6(v: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,8 @@ of the transcendental functions."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 Tensor = torch.Tensor
@@ -154,3 +156,37 @@ def offset_ray_origin(p: Tensor, n: Tensor, w: Tensor,
     d = (scale * mag)[..., None]
     off = torch.where(dot(w, n)[..., None] < 0, -d, d)
     return p + off * n
+
+
+def equal_area_sphere_to_square(d: Tensor) -> Tensor:
+    """Equal-area octahedral mapping, unit direction -> [0,1]^2 (env maps)."""
+    x, y, z = d[..., 0].abs(), d[..., 1].abs(), d[..., 2].abs()
+    r = torch.sqrt(torch.clamp(1.0 - z, 0.0, 1.0))
+    a = torch.maximum(x, y)
+    b = torch.minimum(x, y)
+    b = torch.where(a == 0, 0.0, b / torch.clamp(a, min=1e-20))
+    phi = torch.atan(b) * (2.0 / math.pi)
+    phi = torch.where(x < y, 1.0 - phi, phi)
+    v = phi * r
+    u = r - v
+    south = d[..., 2] < 0
+    u, v = torch.where(south, 1.0 - v, u), torch.where(south, 1.0 - u, v)
+    u = torch.copysign(u, d[..., 0])
+    v = torch.copysign(v, d[..., 1])
+    return torch.stack([0.5 * (u + 1.0), 0.5 * (v + 1.0)], -1)
+
+
+def equal_area_square_to_sphere(p: Tensor) -> Tensor:
+    """Inverse of equal_area_sphere_to_square ([0,1]^2 -> unit direction)."""
+    u = 2.0 * p[..., 0] - 1.0
+    v = 2.0 * p[..., 1] - 1.0
+    up = u.abs()
+    vp = v.abs()
+    sd = 1.0 - (up + vp)
+    r = 1.0 - sd.abs()
+    phi = torch.where(r == 0, 1.0, (vp - up) / torch.clamp(r, min=1e-20) + 1.0) * math.pi / 4.0
+    z = torch.copysign(1.0 - r * r, sd)
+    cphi = torch.copysign(torch.cos(phi), u)
+    sphi = torch.copysign(torch.sin(phi), v)
+    s = r * torch.sqrt(torch.clamp(2.0 - r * r, 0.0, 2.0))
+    return torch.stack([cphi * s, sphi * s, z], -1)

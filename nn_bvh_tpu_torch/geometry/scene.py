@@ -11,10 +11,13 @@ very same tables in both packages.
 In this slice: every material of the JAX package (diffuse, conductor,
 dielectric, thin dielectric, diffuse transmission, coated diffuse, coated
 conductor, mix, hair, measured, subsurface; named-spectrum eta and k),
-per-triangle area lights, uniform infinite lights, and homogeneous and grid
-participating media with their medium interfaces. Textures, the other
-lights, quadrics and motion blur raise NotImplementedError naming their
-ROADMAP item.
+point, distant, spot, uniform-infinite, image-infinite (equal-area env map)
+and portal env lights, per-triangle and analytic sphere area lights,
+analytic quadrics and bilinear patches, object motion blur (shutter-end
+vertex tables), and homogeneous and grid participating media with their
+medium interfaces. Textures and the two lights that read the texture atlas
+(projection, goniometric) raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core import rgb2spec
+from . import transform as xf
 
 # material tags (same values as the JAX package)
 MAT_DIFFUSE = 0
@@ -42,9 +46,21 @@ MAT_SSS_EXIT = 11    # virtual: the exit lobe a subsurface lane takes after its
 #   probe (wavefront/subsurface.py); never in mat_type
 MAT_INTERFACE = -1   # no material (a medium boundary)
 # light tags (same values as the JAX package)
+LIGHT_POINT = 0
+LIGHT_DISTANT = 1
 LIGHT_UNIFORM_INFINITE = 2
 LIGHT_AREA_TRI = 3
+LIGHT_IMAGE_INFINITE = 4
+LIGHT_SPOT = 5
+LIGHT_PROJECTION = 6
+LIGHT_GONIOMETRIC = 7
+LIGHT_PORTAL_ENV = 8
 LIGHT_SPHERE_AREA = 9
+# light_params by tag (scatter/lights.sample_li):
+#   AREA_TRI:    [0] tri_index [1] two_sided
+#   SPOT:        [0:3] direction [3] cos_total_width [4] cos_falloff_start
+#   SPHERE_AREA: [0] radius [1] two_sided [2] inscribed tessellation radius
+#   PORTAL_ENV:  [0:12] portal corners p0 p1 p2 p3
 # media (same values as the JAX package; cloud grids come with the parser)
 MED_HOMOGENEOUS = 0
 MED_GRID = 1
@@ -53,18 +69,20 @@ MAJ_GRID_RES = 16  # low-res conservative majorant grid
 
 N_MAT_PARAMS = 12   # [rough_u, rough_v, eta, k, transmittance, texture, mix_a,
 #  mix_b, mix_amount, coat_roughness, eta_tab, k_tab]
-N_LIGHT_PARAMS = 12  # AREA_TRI: [0]=tri_index [1]=two_sided
+N_LIGHT_PARAMS = 12
 
 SLICE_MATERIALS = tuple(range(MAT_SUBSURFACE + 1))
-SLICE_LIGHTS = (LIGHT_UNIFORM_INFINITE, LIGHT_AREA_TRI)
+SLICE_LIGHTS = tuple(t for t in range(LIGHT_SPHERE_AREA + 1)
+                     if t not in (LIGHT_PROJECTION, LIGHT_GONIOMETRIC))
 
 _INT_FIELDS = ("tri_mat", "tri_light", "mat_type", "light_type", "med_type",
-               "med_grid_id", "med_temp_grid_id", "tri_med_inside", "tri_med_outside")
-_STATIC_INTS = ("n_tris", "n_lights", "n_media", "camera_medium")
-# static material-feature gates (the JAX names): which optional lobes and
-# stages a wave computes at all
+               "med_grid_id", "med_temp_grid_id", "tri_med_inside", "tri_med_outside",
+               "quad_type", "quad_mat", "quad_light", "quad_med")
+_STATIC_INTS = ("n_tris", "n_lights", "n_media", "camera_medium", "n_quadrics")
+# static feature gates (the JAX names): which optional lobes, stages and
+# light branches a wave computes at all
 _STATIC_FLAGS = ("feat_mix", "feat_hair", "feat_measured", "feat_spectral",
-                 "feat_subsurface", "feat_coated")
+                 "feat_subsurface", "feat_coated", "feat_portal")
 
 
 class CompiledScene(NamedTuple):
@@ -127,12 +145,38 @@ class CompiledScene(NamedTuple):
     sss_rho_eff: object = None    # (S, 64)
     sss_radius: object = None     # (64,)
     sss_rho: object = None        # (64,)
+    # equal-area env map (ImageInfiniteLight): coefficient image and the
+    # luminance sampling tables; 1-entry placeholders without one
+    env_coeffs: object = None     # (He, We, 4)
+    env_cond_cdf: object = None   # (He, We+1)
+    env_marg_cdf: object = None   # (He+1,)
+    env_marg_func: object = None  # (He,)
+    env_luminance: object = None  # (He, We) normalised sampling function
+    # portal warp (scatter/portal.py): rectified env image, SAT, frame rows
+    portal_img_coeffs: object = None  # (Rp, Rp, 4)
+    portal_sat: object = None         # (Rp+1, Rp+1)
+    portal_frame: object = None       # (3, 3)
+    # object motion blur: shutter-end copies of the vertex tables (None when
+    # static); a wave lerps them at its shutter time
+    tri_p_end: object = None      # (N, 3, 3)
+    tri_n_end: object = None      # (N, 3, 3)
+    tri_shade_end: object = None  # like tri_shade
+    # analytic quadrics (geometry/quadrics.py); prim ids above the padded
+    # triangle range, their mat/light/medium in tri_shade's appended rows
+    quad_type: object = None      # (Q,) i32
+    quad_params: object = None    # (Q, 13)
+    quad_uv_scale: object = None  # (Q,)
+    quad_mat: object = None       # (Q,) i32
+    quad_light: object = None     # (Q,) i32
+    quad_med: object = None       # (Q, 2) i32 [inside, outside]
+    n_quadrics: int = 0
     feat_mix: bool = False
     feat_hair: bool = False
     feat_measured: bool = False
     feat_spectral: bool = False
     feat_subsurface: bool = False
     feat_coated: bool = False
+    feat_portal: bool = False
 
     def replace(self, **kw) -> "CompiledScene":
         return self._replace(**kw)
@@ -145,20 +189,29 @@ def host(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def make_tri_shade(scene: CompiledScene) -> np.ndarray:
-    tp = host(scene.tri_p).astype(np.float32)
+def make_tri_shade(scene: CompiledScene, use_end: bool = False) -> np.ndarray:
+    """The (N + Q, 28) record: one row per triangle (the shutter-end
+    vertices with use_end), then one per quadric, whose only meaningful
+    columns are material, light and media."""
+    tp = host(scene.tri_p_end if use_end else scene.tri_p).astype(np.float32)
+    tn = host(scene.tri_n_end if use_end else scene.tri_n).astype(np.float32)
     n = len(tp)
-    out = np.zeros((n, 28), np.float32)
-    out[:, 0:9] = tp.reshape(n, 9)
-    out[:, 9:18] = host(scene.tri_n).astype(np.float32).reshape(n, 9)
-    out[:, 18:24] = host(scene.tri_uv).astype(np.float32).reshape(n, 6)
-    out[:, 24] = host(scene.tri_mat).astype(np.float32)
-    out[:, 25] = host(scene.tri_light).astype(np.float32)
+    nq = int(scene.n_quadrics or 0)
+    out = np.zeros((n + nq, 28), np.float32)
+    out[:n, 0:9] = tp.reshape(n, 9)
+    out[:n, 9:18] = tn.reshape(n, 9)
+    out[:n, 18:24] = host(scene.tri_uv).astype(np.float32).reshape(n, 6)
+    out[:n, 24] = host(scene.tri_mat).astype(np.float32)
+    out[:n, 25] = host(scene.tri_light).astype(np.float32)
     if scene.tri_med_inside is not None:
-        out[:, 26] = host(scene.tri_med_inside).astype(np.float32)
-        out[:, 27] = host(scene.tri_med_outside).astype(np.float32)
+        out[:n, 26] = host(scene.tri_med_inside).astype(np.float32)
+        out[:n, 27] = host(scene.tri_med_outside).astype(np.float32)
     else:
-        out[:, 26:28] = -1.0
+        out[:n, 26:28] = -1.0
+    if nq:
+        out[n:, 24] = host(scene.quad_mat).astype(np.float32)
+        out[n:, 25] = host(scene.quad_light).astype(np.float32)
+        out[n:, 26:28] = host(scene.quad_med).astype(np.float32)
     return out
 
 
@@ -225,20 +278,11 @@ def check_slice(fields: dict) -> None:
     bad_lights = set(np.unique(host(fields["light_type"])).tolist()) - set(SLICE_LIGHTS)
     if bad_lights:
         raise NotImplementedError(
-            f"light tags {sorted(bad_lights)} are not ported yet "
-            "(ROADMAP queue 1, item 2: remaining lights)")
-    if int(fields.get("n_quadrics") or 0):
-        raise NotImplementedError("analytic quadrics are not ported yet "
-                                  "(ROADMAP queue 1, item 2)")
-    if has("tri_p_end"):
-        raise NotImplementedError("motion blur is not ported yet "
-                                  "(ROADMAP queue 1, item 2)")
+            f"light tags {sorted(bad_lights)} are not ported yet: projection and "
+            "goniometric lights read the texture atlas (ROADMAP queue 1, item 3: textures)")
     if has("tex_atlas") and np.asarray(fields["tex_atlas"]).size > 4:
         raise NotImplementedError("textures are not ported yet "
                                   "(ROADMAP queue 1, item 3)")
-    if has("env_luminance") and np.asarray(fields["env_luminance"]).size > 1:
-        raise NotImplementedError("environment maps are not ported yet "
-                                  "(ROADMAP queue 1, item 2)")
 
 
 def scene_from_numpy(fields: dict, bvh_fields: dict, device):
@@ -274,6 +318,9 @@ class SceneBuilder:
         self._spec_tables = []   # (471,) dense spectra
         self._spec_names = {}    # name -> row of _spec_tables
         self._camera_medium = -1
+        self._tri_pe, self._tri_ne = [], []  # shutter-end vertices/normals or None
+        self._quadrics = []
+        self._env_image = None   # (He, We, 3) equal-area RGB
 
     def add_material(self, kind: str = "diffuse", reflectance=(0.5, 0.5, 0.5),
                      roughness: float = 0.0, eta: float | None = None, k: float = 3.9,
@@ -377,13 +424,102 @@ class SceneBuilder:
             sss_rho_eff=np.stack([t.rho_eff for t in tabs]),
             sss_radius=tabs[0].radius, sss_rho=tabs[0].rho)
 
+    def _add_light(self, kind: int, pos, rgb, scale: float, params=None) -> int:
+        self._lights.append(dict(
+            type=kind, pos=np.asarray(pos, np.float32), rgb=np.asarray(rgb, np.float32),
+            scale=scale,
+            params=np.zeros(N_LIGHT_PARAMS, np.float32) if params is None else params))
+        return len(self._lights) - 1
+
     def add_uniform_infinite_light(self, radiance_rgb=(1, 1, 1),
                                    scale: float = 1.0) -> int:
-        self._lights.append(dict(
-            type=LIGHT_UNIFORM_INFINITE, pos=np.zeros(3, np.float32),
-            rgb=np.asarray(radiance_rgb, np.float32), scale=scale,
-            params=np.zeros(N_LIGHT_PARAMS, np.float32)))
-        return len(self._lights) - 1
+        return self._add_light(LIGHT_UNIFORM_INFINITE, np.zeros(3), radiance_rgb, scale)
+
+    def add_point_light(self, position, intensity_rgb=(1, 1, 1), scale: float = 1.0) -> int:
+        return self._add_light(LIGHT_POINT, position, intensity_rgb, scale)
+
+    def add_distant_light(self, direction, radiance_rgb=(1, 1, 1), scale: float = 1.0) -> int:
+        """`direction` points toward the light."""
+        d = np.asarray(direction, np.float64)
+        return self._add_light(LIGHT_DISTANT, (d / np.linalg.norm(d)).astype(np.float32),
+                               radiance_rgb, scale)
+
+    def add_spot_light(self, position, direction, intensity_rgb=(1, 1, 1),
+                       scale: float = 1.0, cone_angle: float = 30.0,
+                       cone_delta: float = 5.0) -> int:
+        """Smooth falloff between cone_angle - cone_delta and cone_angle
+        (degrees, pbrt's coneangle / conedeltaangle)."""
+        d = np.asarray(direction, np.float64)
+        params = np.zeros(N_LIGHT_PARAMS, np.float32)
+        params[0:3] = (d / np.linalg.norm(d)).astype(np.float32)
+        params[3] = np.cos(np.deg2rad(cone_angle))
+        params[4] = np.cos(np.deg2rad(max(cone_angle - cone_delta, 0.0)))
+        return self._add_light(LIGHT_SPOT, position, intensity_rgb, scale, params)
+
+    def add_projection_light(self, *args, **kw) -> int:
+        raise NotImplementedError("projection lights read the texture atlas "
+                                  "(ROADMAP queue 1, item 3: textures)")
+
+    def add_goniometric_light(self, *args, **kw) -> int:
+        raise NotImplementedError("goniometric lights read the texture atlas "
+                                  "(ROADMAP queue 1, item 3: textures)")
+
+    def set_environment_map(self, equal_area_rgb, scale: float = 1.0) -> int:
+        """An image infinite light: an equal-area octahedral radiance map."""
+        self._env_image = np.asarray(equal_area_rgb, np.float32)
+        return self._add_light(LIGHT_IMAGE_INFINITE, np.zeros(3), np.ones(3), scale)
+
+    def add_portal(self, p0, p1, p2, p3) -> int:
+        """Turn the env light into a portal light: its sampling is restricted
+        to the solid angle of the planar quad p0 p1 p2 p3."""
+        params = np.zeros(N_LIGHT_PARAMS, np.float32)
+        params[0:12] = np.concatenate([np.asarray(x, np.float32) for x in (p0, p1, p2, p3)])
+        for i, light in enumerate(self._lights):
+            if light["type"] == LIGHT_IMAGE_INFINITE:
+                light["type"] = LIGHT_PORTAL_ENV
+                light["params"] = params
+                return i
+        raise ValueError("add_portal requires set_environment_map first")
+
+    def add_sphere_area_light(self, center, radius, emission_rgb,
+                              emission_scale: float = 1.0, two_sided: bool = False,
+                              n_theta: int = 16) -> int:
+        """One analytic sphere area light record; the caller adds the
+        tessellated geometry with this light_id. params[2] is the
+        tessellation's inscribed radius, which bounds the light's shadow rays
+        so its own mesh never occludes its analytic sample points."""
+        params = np.zeros(N_LIGHT_PARAMS, np.float32)
+        params[0] = float(radius)
+        params[1] = 1.0 if two_sided else 0.0
+        params[2] = float(radius) * float(np.cos(np.pi / max(n_theta, 3))) * 0.999
+        return self._add_light(LIGHT_SPHERE_AREA, center, emission_rgb,
+                               float(emission_scale), params)
+
+    def add_quadric(self, kind: str, center, radius: float, material: int,
+                    axis=(0.0, 0.0, 1.0), inner_radius: float = 0.0,
+                    zmin: float = -1e30, zmax: float = 1e30, light_id: int = -1,
+                    med_inside: int = -1, med_outside: int = -1) -> int:
+        """An analytic sphere, disk or cylinder (geometry/quadrics.py)."""
+        from . import quadrics
+
+        qt, qp = quadrics.make_record(kind, center, radius, axis=axis,
+                                      inner_radius=inner_radius, zmin=zmin, zmax=zmax)
+        return self._add_quadric(qt, qp, material, light_id, med_inside, med_outside)
+
+    def add_bilinear_patch(self, p00, p10, p01, p11, material: int, light_id: int = -1,
+                           med_inside: int = -1, med_outside: int = -1) -> int:
+        """An analytic (possibly non-planar) bilinear patch."""
+        from . import quadrics
+
+        qt, qp = quadrics.make_bilinear_record(p00, p10, p01, p11)
+        return self._add_quadric(qt, qp, material, light_id, med_inside, med_outside)
+
+    def _add_quadric(self, qt, qp, material, light_id, med_inside, med_outside) -> int:
+        self._quadrics.append(dict(
+            type=qt, params=qp, material=int(material),
+            light=int(light_id if light_id is not None else -1),
+            med=(int(med_inside), int(med_outside))))
+        return len(self._quadrics) - 1
 
     def add_medium(self, kind: str = "homogeneous", sigma_a=(1.0, 1.0, 1.0),
                    sigma_s=(0.0, 0.0, 0.0), scale: float = 1.0, g: float = 0.0,
@@ -430,43 +566,65 @@ class SceneBuilder:
         self._camera_medium = int(medium)
 
     def add_mesh(self, vertices, faces, material: int, normals=None, uvs=None,
-                 emission_rgb=None, emission_scale: float = 1.0,
+                 transform=None, emission_rgb=None, emission_scale: float = 1.0,
                  two_sided: bool = False, med_inside: int = -1,
-                 med_outside: int = -1) -> None:
-        """Indexed triangle mesh in render space (transforms come with the
-        parser, ROADMAP queue 1, item 4), with optional per-vertex uvs (hair
-        reads its fiber offset from v); with emission_rgb every triangle
-        becomes a diffuse area light.
-        med_inside / med_outside are the media on the side the geometric
-        normal points away from / toward; material -1 makes the mesh a pure
-        medium boundary."""
-        vertices = np.asarray(vertices, np.float32)
-        faces = np.asarray(faces, np.int64)
-        p = vertices[faces]
-        if normals is not None:
-            n = np.asarray(normals, np.float32)[faces]
-        else:
+                 med_outside: int = -1, light_id: int | None = None,
+                 transform_end=None) -> None:
+        """Indexed triangle mesh, placed by the 4x4 `transform` (render
+        space when None), with optional per-vertex uvs (hair reads its fiber
+        offset from v); with emission_rgb every triangle becomes a diffuse
+        area light, with light_id every triangle maps to that registered
+        light (the sphere area light). transform_end, when it differs from
+        transform, is the shutter-close keyframe: the scene gets motion
+        blur. med_inside / med_outside are the media on the side the
+        geometric normal points away from / toward; material -1 makes the
+        mesh a pure medium boundary."""
+        def place(m, verts, norms, faces):
+            if m is not None:
+                verts = xf.apply_points(m, verts)
+                norms = None if norms is None else xf.apply_normals(m, norms)
+            p = verts[faces]
+            if norms is not None:
+                return p, np.asarray(norms, np.float32)[faces]
             ng = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
             ng /= np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-20)
-            n = np.repeat(ng[:, None, :], 3, axis=1)
+            return p, np.repeat(ng[:, None, :], 3, axis=1)
+
+        vertices = np.asarray(vertices, np.float32)
+        faces = np.asarray(faces, np.int64)
+        p, n = place(transform, vertices, normals, faces)
+        if transform_end is not None and (transform is None
+                                          or not np.allclose(transform_end, transform)):
+            pe, ne = place(transform_end, vertices, normals, faces)
+            self._tri_pe.append(pe.astype(np.float32))
+            self._tri_ne.append(ne.astype(np.float32))
+        else:
+            self._tri_pe.append(None)
+            self._tri_ne.append(None)
         self._tri_p.append(p)
         self._tri_n.append(n.astype(np.float32))
         self._tri_uv.append(np.zeros((len(faces), 3, 2), np.float32) if uvs is None
                             else np.asarray(uvs, np.float32)[faces])
         self._tri_mat.append(np.full(len(faces), material, np.int32))
         self._tri_med.append((int(med_inside), int(med_outside)))
-        self._tri_emit.append(
-            None if emission_rgb is None else
-            (np.asarray(emission_rgb, np.float32), float(emission_scale), two_sided))
+        if light_id is not None:
+            self._tri_emit.append(int(light_id))
+        else:
+            self._tri_emit.append(
+                None if emission_rgb is None else
+                (np.asarray(emission_rgb, np.float32), float(emission_scale), two_sided))
 
     def add_sphere(self, center, radius, material, n_theta=32, n_phi=64,
-                   emission_rgb=None, **kw):
+                   emission_rgb=None, emission_scale: float = 1.0,
+                   two_sided: bool = False, **kw):
         """Tessellated sphere (same tessellation as the JAX builder); **kw
         goes to add_mesh (uvs over the (n_theta+1) x (n_phi+1) vertex grid,
-        med_inside, med_outside)."""
+        transform, transform_end, med_inside, med_outside). An emissive
+        sphere registers one analytic sphere area light for the whole shape."""
         if emission_rgb is not None:
-            raise NotImplementedError("sphere area lights are not ported yet "
-                                      "(ROADMAP queue 1, item 2)")
+            kw = dict(kw, light_id=self.add_sphere_area_light(
+                center, radius, emission_rgb, emission_scale, two_sided=two_sided,
+                n_theta=n_theta))
         th = np.linspace(0, np.pi, n_theta + 1)
         ph = np.linspace(0, 2 * np.pi, n_phi + 1)
         tt, pp = np.meshgrid(th, ph, indexing="ij")
@@ -492,12 +650,22 @@ class SceneBuilder:
 
     def build(self) -> CompiledScene:
         if not self._tri_p:
-            raise ValueError("empty scene")
+            if not self._quadrics:
+                raise ValueError("empty scene")
+            # a quadric-only scene keeps one degenerate triangle (no
+            # intersector accepts det == 0) so the BVH has a leaf
+            self.add_mesh(np.zeros((3, 3), np.float32), np.array([[0, 1, 2]]), material=-1)
         tri_p = np.concatenate(self._tri_p)
         tri_n = np.concatenate(self._tri_n)
         tri_uv = np.concatenate(self._tri_uv)
         tri_mat = np.concatenate(self._tri_mat)
         n = len(tri_p)
+        animated = any(pe is not None for pe in self._tri_pe)
+        if animated:
+            tri_p_end = np.concatenate([p0 if pe is None else pe
+                                        for pe, p0 in zip(self._tri_pe, self._tri_p)])
+            tri_n_end = np.concatenate([n0 if ne is None else ne
+                                        for ne, n0 in zip(self._tri_ne, self._tri_n)])
         tri_med_in = np.concatenate([np.full(len(c), mi, np.int32)
                                      for c, (mi, _) in zip(self._tri_p, self._tri_med)])
         tri_med_out = np.concatenate([np.full(len(c), mo, np.int32)
@@ -508,7 +676,9 @@ class SceneBuilder:
         lights = list(self._lights)
         off = 0
         for chunk, emit in zip(self._tri_p, self._tri_emit):
-            if emit is not None:
+            if isinstance(emit, int):  # every triangle maps to one shape light
+                tri_light[off:off + len(chunk)] = emit
+            elif emit is not None:
                 rgb, sc, two = emit
                 for k in range(len(chunk)):
                     tri_light[off + k] = len(lights)
@@ -525,6 +695,10 @@ class SceneBuilder:
             tri_p = np.concatenate([tri_p, np.zeros((pad, 3, 3), np.float32)])
             tri_n = np.concatenate([tri_n, np.zeros((pad, 3, 3), np.float32)])
             tri_n[n:, :, 2] = 1.0
+            if animated:
+                tri_p_end = np.concatenate([tri_p_end, np.zeros((pad, 3, 3), np.float32)])
+                tri_n_end = np.concatenate([tri_n_end, np.zeros((pad, 3, 3), np.float32)])
+                tri_n_end[n:, :, 2] = 1.0
             tri_uv = np.concatenate([tri_uv, np.zeros((pad, 3, 2), np.float32)])
             tri_mat = np.concatenate([tri_mat, np.full(pad, -1, np.int32)])
             tri_light = np.concatenate([tri_light, np.full(pad, -1, np.int32)])
@@ -564,8 +738,25 @@ class SceneBuilder:
 
         lo = tri_p[:n].reshape(-1, 3).min(0)
         hi = tri_p[:n].reshape(-1, 3).max(0)
+        quads = dict(n_quadrics=0)
+        if self._quadrics:
+            from . import quadrics
+
+            qtype = np.array([q["type"] for q in self._quadrics], np.int32)
+            qparams = np.stack([q["params"] for q in self._quadrics])
+            for qt, qp in zip(qtype, qparams):
+                qlo, qhi = quadrics.bounds(int(qt), qp)
+                lo, hi = np.minimum(lo, qlo), np.maximum(hi, qhi)
+            quads = dict(quad_type=qtype, quad_params=qparams,
+                         quad_uv_scale=quadrics.uv_scale(qtype, qparams),
+                         quad_mat=np.array([q["material"] for q in self._quadrics], np.int32),
+                         quad_light=np.array([q["light"] for q in self._quadrics], np.int32),
+                         quad_med=np.array([q["med"] for q in self._quadrics], np.int32),
+                         n_quadrics=len(self._quadrics))
         out = CompiledScene(
-            **self._build_media(), **self._build_sss(),
+            **self._build_media(), **self._build_sss(), **self._build_env(), **quads,
+            **self._build_portal(lights),
+            feat_portal=bool(np.any(light_type == LIGHT_PORTAL_ENV)),
             measured_coeffs=measured_coeffs, measured_alpha=measured_alpha,
             spec_tables=np.stack(self._spec_tables) if self._spec_tables else None,
             feat_mix=bool(np.any(mat_type == MAT_MIX)),
@@ -583,7 +774,57 @@ class SceneBuilder:
             light_type=light_type, light_pos=light_pos, light_coeffs=lc,
             light_scale=light_scale, light_params=light_params,
             n_lights=int(len(lights)), bounds=np.stack([lo, hi]), tri_shade=None)
-        return out.replace(tri_shade=make_tri_shade(out))
+        if animated:
+            out = out.replace(tri_p_end=tri_p_end, tri_n_end=tri_n_end)
+        out = out.replace(tri_shade=make_tri_shade(out))
+        if animated:
+            out = out.replace(tri_shade_end=make_tri_shade(out, use_end=True))
+        return out
+
+    def _build_env(self) -> dict:
+        """The env map's coefficient image and luminance sampling tables
+        (marginal over rows, conditional within a row), or the JAX builder's
+        1-entry placeholders."""
+        img = self._env_image
+        if img is None:
+            return dict(env_coeffs=np.zeros((1, 1, 4), np.float32),
+                        env_cond_cdf=np.zeros((1, 2), np.float32),
+                        env_marg_cdf=np.zeros((2,), np.float32),
+                        env_marg_func=np.zeros((1,), np.float32),
+                        env_luminance=np.zeros((1, 1), np.float32))
+        lum = (0.2126 * img[..., 0] + 0.7152 * img[..., 1]
+               + 0.0722 * img[..., 2]).astype(np.float32) + 1e-9
+        he, we = lum.shape
+        row_int = lum.mean(1)
+        cond = np.concatenate([np.zeros((he, 1), np.float32), np.cumsum(lum, 1) / we], 1) \
+            / np.maximum(row_int[:, None], 1e-20)
+        marg_cdf = np.concatenate([[0.0], np.cumsum(row_int) / he]).astype(np.float32)
+        integral = marg_cdf[-1]
+        marg_cdf = marg_cdf / max(integral, 1e-20)
+        return dict(env_coeffs=rgb2spec.rgb_image_to_coeffs(img),
+                    env_cond_cdf=cond.astype(np.float32), env_marg_cdf=marg_cdf,
+                    env_marg_func=(row_int / max(integral, 1e-20)).astype(np.float32),
+                    env_luminance=(lum / max(integral, 1e-20)).astype(np.float32))
+
+    def _build_portal(self, lights) -> dict:
+        """The first portal light's warp tables (scatter/portal.py), its frame's
+        +z turned away from the scene's centroid, or nothing."""
+        if self._env_image is None:
+            return {}
+        for light in lights:
+            if light["type"] != LIGHT_PORTAL_ENV:
+                continue
+            from ..scatter import portal
+
+            quad = np.asarray(light["params"][0:12], np.float32).reshape(4, 3)
+            xw, yw, zw = portal.frame_from_quad(*quad)
+            centroid = np.concatenate([t.reshape(-1, 3) for t in self._tri_p]).mean(0)
+            if np.dot(zw, centroid - quad[0]) > 0:
+                xw, yw, zw = yw, xw, -zw  # swapping x and y keeps the frame right-handed
+            pic, sat = portal.build_tables(self._env_image, quad, frame=(xw, yw, zw))
+            return dict(portal_img_coeffs=pic, portal_sat=sat,
+                        portal_frame=np.stack([xw, yw, zw]))
+        return {}
 
     def _build_media(self) -> dict:
         """The media tables, laid out as the JAX builder lays them out (with

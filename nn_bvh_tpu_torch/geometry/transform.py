@@ -1,5 +1,6 @@
-"""4x4 host transforms (numpy copy of the part of
-nn_bvh_tpu/geometry/transform.py the bench path uses: the camera's look_at)."""
+"""4x4 host transforms (numpy copy of the parts of
+nn_bvh_tpu/geometry/transform.py the port uses: look_at, translate and
+applying a transform to points and normals)."""
 
 from __future__ import annotations
 
@@ -25,3 +26,23 @@ def look_at(eye, target, up) -> np.ndarray:
     m[:3, 2] = d
     m[:3, 3] = eye
     return m
+
+
+def translate(delta) -> np.ndarray:
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 3] = np.asarray(delta, np.float32)
+    return m
+
+
+def apply_points(m: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """(4,4) transform of (..., 3) points."""
+    p = np.asarray(p, np.float32)
+    return (p @ m[:3, :3].T + m[:3, 3]).astype(np.float32)
+
+
+def apply_normals(m: np.ndarray, n: np.ndarray) -> np.ndarray:
+    """Normals transform by the inverse transpose, then renormalise."""
+    inv = np.linalg.inv(m[:3, :3])
+    r = np.asarray(n, np.float32) @ inv.astype(np.float32)
+    norm = np.linalg.norm(r, axis=-1, keepdims=True)
+    return (r / np.maximum(norm, 1e-20)).astype(np.float32)

@@ -46,27 +46,36 @@ PEAK_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
-def build_bench_scene():
-    """bench.py:45-70 with the port's modules (the same RandomState(42)
-    draws): 24 spheres, a floor and an emissive quad, 52,996 triangles, SAH
-    BVH, 400x400 camera -> (host scene, DeviceBVH, camera)."""
+def bench_geometry(b, sphere_kw=lambda i, c, r: {}):
+    """bench.py:45-70's geometry into b (a SceneBuilder of either package;
+    the same RandomState(42) draws): 24 spheres, a floor and an emissive
+    quad, 52,996 triangles. sphere_kw(i, center, radius) adds keywords to
+    sphere i's add_sphere -> b."""
     rs = np.random.RandomState(42)
-    b = scene_mod.SceneBuilder()
     diffuse = b.add_material("diffuse", reflectance=(0.6, 0.5, 0.4))
     metal = b.add_material("conductor", reflectance=(0.9, 0.75, 0.5), roughness=0.15)
     floor = b.add_material("diffuse", reflectance=(0.5, 0.5, 0.5))
     for i in range(24):
         c = (rs.rand(3) - 0.5) * np.array([6.0, 2.0, 6.0]) + np.array([0, 1.2, 0])
         r = 0.25 + 0.45 * rs.rand()
-        b.add_sphere(c, r, metal if i % 3 == 0 else diffuse, n_theta=24, n_phi=48)
+        b.add_sphere(c, r, metal if i % 3 == 0 else diffuse, n_theta=24, n_phi=48,
+                     **sphere_kw(i, c, r))
     b.add_quad((-8, 0, -8), (8, 0, -8), (8, 0, 8), (-8, 0, 8), floor)
     b.add_quad((-2, 6, -2), (2, 6, -2), (2, 6, 2), (-2, 6, 2), floor,
                emission_rgb=(1.0, 0.9, 0.8), emission_scale=20.0, two_sided=True)
-    sc, dbvh, _ = accel.build_scene_bvh(b.build())
-    cam = camera_mod.make_perspective(
-        xf.look_at((0, 3.0, -9.0), (0, 1.0, 0), (0, 1, 0)), fov=50.0,
-        width=BENCH_SIZE, height=BENCH_SIZE)
-    return sc, dbvh, cam
+    return b
+
+
+def bench_camera(size: int = BENCH_SIZE):
+    return camera_mod.make_perspective(
+        xf.look_at((0, 3.0, -9.0), (0, 1.0, 0), (0, 1, 0)), fov=50.0, width=size, height=size)
+
+
+def build_bench_scene():
+    """bench.py:45-70 with the port's modules: the bench geometry, SAH BVH,
+    400x400 camera -> (host scene, DeviceBVH, camera)."""
+    sc, dbvh, _ = accel.build_scene_bvh(bench_geometry(scene_mod.SceneBuilder()).build())
+    return sc, dbvh, bench_camera()
 
 
 def build_deep_tree(levels: int = 100, seed: int = 0):
@@ -310,19 +319,144 @@ def build_material_scene(size: int = BENCH_SIZE, coated: bool = True):
     the bench camera -> (host scene, DeviceBVH, camera)."""
     sc, dbvh, _ = accel.build_scene_bvh(material_scene(scene_mod.SceneBuilder(),
                                                        coated=coated).build())
-    cam = camera_mod.make_perspective(
-        xf.look_at((0, 3.0, -9.0), (0, 1.0, 0), (0, 1, 0)), fov=50.0, width=size, height=size)
-    return sc, dbvh, cam
+    return sc, dbvh, bench_camera(size)
 
 
 def volpath_fog_config():
-    """The crown's integrator settings (bench.py:122-126): VolPath, MIS,
-    depth 100, Russian roulette from depth 2, power light sampler, 64 spp;
-    Sobol, seed 0, where the crown uses Halton (not ported) ->
-    (IntegratorConfig, sampler config)."""
+    """The crown's integrator settings (bench.py:122-128): VolPath, MIS,
+    depth 100, Russian roulette from depth 2, power light sampler, Halton,
+    64 spp, seed 0 -> (IntegratorConfig, sampler config)."""
     return (integrator.IntegratorConfig(kind="volpath", max_depth=FOG_DEPTH, rr_depth=2,
                                         mis=True, light_sampler="power"),
-            samplers.make_sampler("sobol", seed=0, spp=64))
+            samplers.make_sampler("halton", seed=0, spp=64))
+
+
+SUN_DIR = (0.45, 0.75, -0.48)   # toward the env map's sun
+EMISSIVE_SPHERE = 7             # the bench sphere that the lights scene makes a light
+SAMPLER_KINDS = ("stratified", "halton", "zsobol", "pmj02bn", "fullsobol")
+
+
+def sky_map(res: int = 128, sun_deg: float = 3.0) -> np.ndarray:
+    """A (res, res, 3) equal-area env map: a sky gradient over the
+    direction's height (+y up) and one bright sun disc of sun_deg degrees
+    around SUN_DIR."""
+    from ..core import vecmath as vm
+
+    uv = (np.stack(np.meshgrid(np.arange(res), np.arange(res), indexing="xy"), -1)
+          + 0.5) / res
+    d = vm.equal_area_square_to_sphere(torch.as_tensor(uv, dtype=torch.float32)).numpy()
+    h = np.clip(d[..., 1], -1.0, 1.0)[..., None]
+    zenith, horizon, ground = (np.array(c, np.float32) for c in
+                               ((0.25, 0.45, 0.9), (0.9, 0.85, 0.75), (0.15, 0.13, 0.1)))
+    sky = np.where(h >= 0, horizon + (zenith - horizon) * np.sqrt(np.maximum(h, 0)), ground)
+    s = np.asarray(SUN_DIR, np.float64)
+    cos_sun = d @ (s / np.linalg.norm(s))
+    sky[cos_sun > np.cos(np.deg2rad(sun_deg))] = (60.0, 55.0, 45.0)
+    return sky.astype(np.float32)
+
+
+def lights_scene(b, env: str = "image"):
+    """The lights scene into b (a SceneBuilder of either package): the bench
+    geometry with sphere EMISSIVE_SPHERE an analytic sphere area light, a
+    point, a spot (cone 30 degrees, delta 5) and a distant light, a 128x128
+    equal-area sky map (env="portal": seen through a portal quad above the
+    spheres), and four analytic quadrics: a sphere, a disk, a cylinder and a
+    non-planar bilinear patch -> b."""
+    emissive = lambda i, c, r: (dict(emission_rgb=(1.0, 0.7, 0.4), emission_scale=8.0)
+                                if i == EMISSIVE_SPHERE else {})
+    bench_geometry(b, emissive)
+    m = b.add_material("diffuse", reflectance=(0.7, 0.7, 0.7))
+    metal = b.add_material("conductor", reflectance=(0.95, 0.9, 0.8), roughness=0.05)
+    b.add_point_light((2.5, 3.5, -3.0), (1.0, 0.85, 0.7), scale=25.0)
+    b.add_spot_light((-3.5, 5.0, -2.5), (0.5, -1.0, 0.4), (0.7, 0.8, 1.0), scale=60.0,
+                     cone_angle=30.0, cone_delta=5.0)
+    b.add_distant_light((0.3, 1.0, -0.5), (1.0, 0.95, 0.9), scale=1.2)
+    b.set_environment_map(sky_map(), scale=1.0)
+    if env == "portal":
+        b.add_portal((-6, 8, -6), (-6, 8, 6), (6, 8, 6), (6, 8, -6))
+    b.add_quadric("sphere", (-4.6, 0.9, -3.2), 0.9, metal)
+    b.add_quadric("disk", (4.3, 0.01, -3.4), 1.1, m, axis=(0, 1, 0), inner_radius=0.3)
+    b.add_quadric("cylinder", (3.8, 0.0, 1.5), 0.45, m, axis=(0, 1, 0), zmin=0.0, zmax=2.2)
+    b.add_bilinear_patch((-6.0, 0.0, 3.5), (-2.0, 1.5, 4.5), (-6.0, 3.5, 4.5),
+                         (-2.0, 2.0, 5.0), m)
+    return b
+
+
+def small_lights_scene(b, env: str = "image"):
+    """The lights scene's kinds at test size, into b (a SceneBuilder of
+    either package): a floor, a tessellated sphere, a one-sided emissive quad
+    (two area lights), a point, a spot and a distant light, a sphere area
+    light, a 16x16 sky map (env "image" | "portal" | "none") and the four
+    analytic quadrics -> b."""
+    m = b.add_material("diffuse", reflectance=(0.6, 0.5, 0.4))
+    metal = b.add_material("conductor", reflectance=(0.9, 0.8, 0.6), roughness=0.1)
+    b.add_quad((-4, 0, -4), (4, 0, -4), (4, 0, 4), (-4, 0, 4), m)
+    b.add_sphere((0.8, 0.6, 0.3), 0.6, m, n_theta=8, n_phi=16)
+    b.add_quad((-1, 3, -1), (1, 3, -1), (1, 3, 1), (-1, 3, 1), m,
+               emission_rgb=(1.0, 0.9, 0.8), emission_scale=6.0, two_sided=False)
+    b.add_point_light((1.5, 2.0, -1.0), (1.0, 0.8, 0.6), scale=4.0)
+    b.add_spot_light((-1.5, 2.5, 0.0), (0.3, -1.0, 0.1), (0.7, 0.8, 1.0), scale=6.0,
+                     cone_angle=30.0, cone_delta=5.0)
+    b.add_distant_light((0.3, 1.0, -0.2), (1.0, 1.0, 0.9), scale=1.5)
+    b.add_sphere((-1.2, 0.5, 1.4), 0.4, m, n_theta=8, n_phi=16,
+                 emission_rgb=(0.9, 0.6, 0.3), emission_scale=3.0)
+    if env != "none":
+        b.set_environment_map(sky_map(16, sun_deg=12.0), scale=0.8)
+    if env == "portal":
+        b.add_portal((-2, 3.5, -2), (-2, 3.5, 2), (2, 3.5, 2), (2, 3.5, -2))
+    b.add_quadric("sphere", (-1.6, 0.5, -1.2), 0.5, metal)
+    b.add_quadric("disk", (1.6, 0.01, -1.4), 0.6, m, axis=(0, 1, 0), inner_radius=0.2)
+    b.add_quadric("cylinder", (2.2, 0.0, 1.2), 0.3, m, axis=(0, 1, 0), zmin=0.0, zmax=1.4)
+    b.add_bilinear_patch((-3.0, 0.0, 2.5), (-1.0, 1.0, 3.0), (-3.0, 2.0, 3.0),
+                         (-1.0, 1.4, 3.4), m)
+    return b
+
+
+def small_lights_camera(mod, size: int = 16):
+    """The camera of small_lights_scene, made by `mod` (either package's
+    camera module)."""
+    return mod.make_perspective(xf.look_at((0, 2.5, -6), (0, 0.8, 0), (0, 1, 0)), fov=55.0,
+                                width=size, height=size)
+
+
+def build_lights_scene(env: str = "image"):
+    """lights_scene through the port's builder, SAH BVH, the bench camera
+    -> (host scene, DeviceBVH, camera)."""
+    if env not in ("image", "portal"):
+        raise ValueError(f"env is 'image' or 'portal', not {env!r}")
+    sc, dbvh, _ = accel.build_scene_bvh(lights_scene(scene_mod.SceneBuilder(), env).build())
+    return sc, dbvh, bench_camera()
+
+
+def lights_config(env: str = "image", sampler: str = "halton", kind: str = "path"):
+    """The lights scene's wave: Path MIS (or kind="volpath"), depth 4,
+    Russian roulette from depth 2, the light BVH (env="image") or the
+    exhaustive light sampler (env="portal"), `sampler` with 16 spp, seed 0
+    -> (IntegratorConfig, sampler config)."""
+    return (integrator.IntegratorConfig(kind=kind, max_depth=BENCH_DEPTH, mis=True, rr_depth=2,
+                                        light_sampler="bvh" if env == "image" else "exhaustive"),
+            samplers.make_sampler(sampler, seed=0, spp=16, width=BENCH_SIZE))
+
+
+def motion_scene(b):
+    """The bench geometry with every other sphere moving by one radius
+    along +x over the shutter -> b (a SceneBuilder of either package)."""
+    return bench_geometry(b, lambda i, c, r: (dict(transform_end=xf.translate((r, 0, 0)))
+                                              if i % 2 else {}))
+
+
+def motion_camera(size: int = BENCH_SIZE):
+    """The bench camera panning 0.15 to the right over the shutter."""
+    cam = bench_camera(size)
+    return camera_mod.with_motion(cam, xf.look_at((0.15, 3.0, -9.0), (0.15, 1.0, 0), (0, 1, 0)))
+
+
+def build_motion_scene(size: int = BENCH_SIZE):
+    """The motion scene (motion_scene, union-bounds SAH BVH) and the
+    panning camera -> (host scene, DeviceBVH, camera). Its wave is
+    bench_config's: Path, Sobol 16 spp."""
+    sc, dbvh, _ = accel.build_scene_bvh(motion_scene(scene_mod.SceneBuilder()).build())
+    return sc, dbvh, motion_camera(size)
 
 
 def probe_batches(sc, cam, dev):
@@ -353,7 +487,7 @@ class RecordingIntersectors(dispatch.Intersectors):
     handed, as (o, d, t_max, any_hit), in `batches`."""
 
     def __init__(self, isect: dispatch.Intersectors):
-        super().__init__(isect.backend, isect.tables, isect.device, isect.sort_bounds)
+        super().__init__(**isect.like())
         self.batches = []
 
     def _call(self, o, d, t_max, any_hit):
@@ -369,9 +503,13 @@ class CheckedIntersectors(dispatch.Intersectors):
 
     def __init__(self, isect: dispatch.Intersectors, plain: dispatch.Intersectors,
                  label: str):
-        super().__init__(isect.backend, isect.tables, isect.device, isect.sort_bounds)
+        super().__init__(**isect.like())
         self.plain, self.label = plain, label
         self.sizes, self.ties = [], 0
+
+    def set_triangles(self, tri_p):
+        super().set_triangles(tri_p)
+        self.plain.set_triangles(tri_p)
 
     def _call(self, o, d, t_max, any_hit):
         out = super()._call(o, d, t_max, any_hit)

@@ -1,5 +1,6 @@
 """CUDA kernels and copies a wave, by torch.profiler, for the bench Path
-wave, `volpath_bench` and (where the tree has it) the material scene, on
+wave, `volpath_bench` and (where the tree has them) the material scene and
+the lights scene under each sampler kind of bench_scene.SAMPLER_KINDS, on
 the default CUDA traversal.
 
     python3 -m nn_bvh_tpu_torch.tools.wave_kernels
@@ -8,7 +9,7 @@ Each wave is counted after a warm-up wave, twice for the bench waves: from
 a profile of device activity alone (chip_smoke's count) and from one that
 records the host's ops too (chip_smoke's count before the material scene,
 whose ~180,000 kernels made such a profile take over a minute to read);
-the material scene from device activity alone. Imports the package it finds
+the material and lights scenes from device activity alone. Imports the package it finds
 first on sys.path, so one script counts two trees in one call
 (`PYTHONPATH=TREE python3 path/to/wave_kernels.py`). Needs a CUDA card.
 """
@@ -45,6 +46,11 @@ def main() -> int:
     if hasattr(bench_scene, "build_material_scene"):
         runs.append(("material scene", *bench_scene.build_material_scene(),
                      bench_scene.bench_config(), False))
+    if hasattr(bench_scene, "build_lights_scene"):
+        lights = bench_scene.build_lights_scene("image")
+        runs += [(f"lights scene, {kind}", *lights,
+                  bench_scene.lights_config("image", sampler=kind), False)
+                 for kind in bench_scene.SAMPLER_KINDS]
     for label, sc_, dbvh_, cam_, (cfg, scfg), both in runs:
         wave = integrator.make_wave_fn(sc_, dbvh_, cam_, scfg, cfg, device=dev)
         film = wave(film_mod.make_film(cam_.height, cam_.width, dev), 0)  # warm-up

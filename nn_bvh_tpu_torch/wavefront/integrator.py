@@ -14,12 +14,21 @@ Differences of form, not of result:
 - the JAX while-loop early exit is a Python loop that checks `active.any()`
   once per bounce and skips the trailing emission segment when every lane
   is dead (it would add nothing);
-- lanes that cannot receive escaped radiance (a scene with no infinite
-  light) skip that block, and Russian roulette is skipped below `rr_depth`
-  (where it keeps every lane and divides beta by 1);
+- lanes that cannot receive escaped radiance (a scene with no uniform
+  infinite light and no env map) skip that block, and Russian roulette is
+  skipped below `rr_depth` (where it keeps every lane and divides beta by 1);
+- light-sampling branches are computed only for the light tags the scene
+  holds (lights.light_types, read once a wave);
 - on every CUDA traversal backend the lane state is re-sorted once per
   bounce (dead, octant, Morton) before the traversals; `perm` scatters the
   radiance back to the caller's lane order, so no pixel value depends on it.
+
+Motion blur, as in the JAX package: a moving camera draws a shutter time
+per lane (one sampler dimension, DIM_PATH_BASE, which moves the bounce
+dimensions up by one); a scene with moving geometry is rendered one
+stratified shutter time per wave (make_wave_fn lerps the vertex tables and
+rebuilds the traversal's triangle table, `dispatch.Intersectors.
+set_triangles`).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (`devices.resolve_device`). Traversal runs under no_grad: gradients reach shading only.
@@ -103,6 +112,25 @@ def _shading_point(scene, hit: Hit, o, d) -> ShadingPoint:
     uv_area = 0.5 * (duv1[..., 0] * duv2[..., 1] - duv1[..., 1] * duv2[..., 0]).abs()
     w_area = 0.5 * vm.safe_sqrt(vm.length_squared(vm.cross(v1 - v0, v2 - v0)))
     uv_scale = vm.safe_sqrt(uv_area / torch.clamp(w_area, min=1e-20))
+    if scene.n_quadrics:
+        # analytic quadric hits (prim ids above the padded triangle range):
+        # exact position, normal and uv; mat/light/media came through the
+        # appended tri_shade rows
+        from ..geometry import quadrics
+
+        quad_base = scene.tri_p.shape[0]
+        prim = torch.clamp(hit.prim, min=0)
+        is_q = prim >= quad_base
+        qidx = torch.where(is_q, prim - quad_base, 0)
+        pq, nq = quadrics.shading(scene.quad_type, scene.quad_params, qidx, o, d, hit.t,
+                                  u=hit.b1, v=hit.b2)
+        pq = torch.where(torch.isfinite(pq), pq, 0.0)
+        isq1 = is_q[..., None]
+        p = torch.where(isq1, pq, p)
+        ng = torch.where(isq1, nq, ng)
+        ns = torch.where(isq1, nq, ns)
+        uv = torch.where(isq1, torch.stack([hit.b1, hit.b2], -1), uv)
+        uv_scale = torch.where(is_q, scene.quad_uv_scale[qidx.long()], uv_scale)
     return ShadingPoint(p=p, ng=ng, ns=ns, uv=uv, mat=rec[..., 24].to(torch.int32),
                         prim=hit.prim, light=rec[..., 25].to(torch.int32),
                         v0=v0, v1=v1, v2=v2, uv_scale=uv_scale, t=t_fin)
@@ -149,12 +177,17 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
     sidx = torch.as_tensor(sample_idx, dtype=torch.int32, device=device).expand(R)
     f32 = dict(dtype=torch.float32, device=device)
 
-    # camera rays and wavelengths
+    # camera rays and wavelengths; a moving camera draws a shutter time
+    # (a dimension consumed only then, so static scenes keep their streams)
     upx, upy = samplers.get_2d(sampler_cfg, pixel_idx, sidx, DIM_PIXEL)
     u_pix = torch.stack([upx, upy], -1)
     film_w = torch.ones(R, **f32)
     ulx, uly = samplers.get_2d(sampler_cfg, pixel_idx, sidx, DIM_LENS)
-    o, d = camera_mod.generate_rays(cam, pixel_idx, u_pix, torch.stack([ulx, uly], -1))
+    animated_cam = cam.motion_keys is not None
+    u_time = (samplers.get_1d(sampler_cfg, pixel_idx, sidx, DIM_PATH_BASE)
+              if animated_cam else None)
+    o, d = camera_mod.generate_rays(cam, pixel_idx, u_pix, torch.stack([ulx, uly], -1),
+                                    u_time=u_time)
     ul = samplers.get_1d(sampler_cfg, pixel_idx, sidx, DIM_WAVELENGTH)
     lam, lam_pdf = spectrum.sample_wavelengths_visible(ul)
 
@@ -174,19 +207,36 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
     kinds = bxdf.scene_kinds(scene)
     if n_lights > 0:
         light_all = lights.light_records(scene)
-        is_inf = scene.light_type == scene_mod.LIGHT_UNIFORM_INFINITE
-        has_inf = bool(is_inf.any())
-        inf_sel_pmf = torch.where(is_inf, ls_tables.pmf, 0.0).sum()
+        types = lights.light_types(scene)
+        tags = frozenset(types)
+        has_env = lights.has_env_map(scene)
+        has_escape = scene_mod.LIGHT_UNIFORM_INFINITE in tags or has_env
+        sel_pmf_of = lambda tag: torch.where(scene.light_type == tag, ls_tables.pmf, 0.0).sum()
+        inf_sel_pmf = sel_pmf_of(scene_mod.LIGHT_UNIFORM_INFINITE)
+        env_sel_pmf = sel_pmf_of(scene_mod.LIGHT_IMAGE_INFINITE)
+        portal_sel_pmf = sel_pmf_of(scene_mod.LIGHT_PORTAL_ENV)
+        portal_ids = lights.portal_ids(types)
+
+    def escape_pdf(prev_p, d):
+        """The light-sampling pdf of an escaped ray's direction: uniform
+        infinite, env map and portal strategies."""
+        pdf_l = sampling.UNIFORM_SPHERE_PDF * inf_sel_pmf
+        if has_env:
+            pdf_l = pdf_l + env_sel_pmf * lights.env_pdf_dir(scene, d)
+        if portal_ids:
+            pdf_l = pdf_l + portal_sel_pmf * lights.portal_pdf_dir(scene, light_all, prev_p, d,
+                                                                   portal_ids)
+        return pdf_l.expand(d.shape[0])
 
     def add_emission(o, d, L, beta, active, specular_prev, prev_pdf, prev_p, lam):
         """Intersect + escaped-ray + emissive-hit contributions."""
         hit = isect_closest(o, d, torch.where(active, 1e30, -1.0))
         found = active & (hit.prim >= 0)
-        if n_lights > 0 and has_inf:
+        if n_lights > 0 and has_escape:
             escaped = active & (hit.prim < 0)
             le_inf = lights.infinite_le(scene, d, lam)
             if cfg.mis:
-                pdf_l = (sampling.UNIFORM_SPHERE_PDF * inf_sel_pmf).expand(R)
+                pdf_l = escape_pdf(prev_p, d)
                 w_mis = torch.where(specular_prev, 1.0,
                                     sampling.power_heuristic(1.0, prev_pdf, 1.0, pdf_l))
             else:
@@ -220,7 +270,7 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
             state = tuple(a[order] for a in state)
         (o, d, L, beta, active, specular_prev, prev_pdf, prev_p, eta_scale,
          cone_w, cone_s, pix, lam, perm) = state
-        base = DIM_PATH_BASE + depth * DIMS_PER_DEPTH
+        base = DIM_PATH_BASE + (1 if animated_cam else 0) + depth * DIMS_PER_DEPTH
 
         L, found, sp, wo = add_emission(o, d, L, beta, active, specular_prev,
                                         prev_pdf, prev_p, lam)
@@ -247,7 +297,7 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
             ulu, ulv = samplers.get_2d(sampler_cfg, pix, sidx, base + 4)
             light_id, sel_pmf, _ = lightsamplers.sample_ctx(ls_tables, sp.p, u_sel)
             ls = lights.sample_li(scene, light_all, light_id, sp.p, lam,
-                                  torch.stack([ulu, ulv], -1))
+                                  torch.stack([ulu, ulv], -1), tags)
             f_l, pdf_b = bxdf.evaluate(ctx, wo_local, vm.to_local(sp.ns, ls.wi))
             cos_l = vm.absdot(ls.wi, sp.ns)
             want = active & ls.valid & (cos_l > 0) & (f_l > 0).any(-1)
@@ -329,9 +379,11 @@ def make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig,
     `isect` overrides the traversal backend (tests / comparisons).
 
     VolPath takes the phased wave (volpath.make_phased_wave) when
-    cfg.compact and cfg.early_exit are set and the traversal is a CUDA
-    backend, the JAX package's rule; otherwise (the CPU's plain traversal
-    among them) it traces the whole wave (volpath.trace_wave_vol)."""
+    cfg.compact and cfg.early_exit are set, the traversal is a CUDA
+    backend and the scene's geometry does not move, the JAX package's
+    rule; otherwise (the CPU's plain traversal among them) it traces the
+    whole wave (volpath.trace_wave_vol). A scene with moving geometry
+    renders each wave at one stratified shutter time (scene_at_shutter)."""
     from . import volpath
 
     _check_cfg(cfg)
@@ -340,8 +392,10 @@ def make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig,
     device = resolve_device(device, scene)
     if isect is None:
         isect = dispatch.make_intersectors(scene, dbvh, device, sort=not cfg.resort)
+    animated = scene.tri_p_end is not None
+    sampler_cfg = samplers.to_device(sampler_cfg, device)
     if (cfg.kind in VOL_KINDS and cfg.compact and cfg.early_exit
-            and isect.backend in dispatch.CUDA_BACKENDS):
+            and isect.backend in dispatch.CUDA_BACKENDS and not animated):
         return volpath.make_phased_wave(scene, dbvh, cam, sampler_cfg, cfg, isect=isect,
                                         device=device)
     ls_tables = lightsamplers.build(scene, cfg.light_sampler, device)
@@ -350,12 +404,35 @@ def make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig,
     trace = volpath.trace_wave_vol if cfg.kind in VOL_KINDS else trace_wave
 
     def wave(film: film_mod.Film, sample_idx) -> film_mod.Film:
-        L, lam, lam_pdf, fw = trace(scene_d, None, cam, sampler_cfg, cfg,
+        sc = scene_d
+        if animated:
+            sc = scene_at_shutter(scene_d, sample_idx, sampler_cfg.spp)
+            isect.set_triangles(sc.tri_p)
+        L, lam, lam_pdf, fw = trace(sc, None, cam, sampler_cfg, cfg,
                                     pixel_idx, sample_idx, ls_tables, isect)
         return film_mod.add_samples(film, pixel_idx, L, lam, lam_pdf,
                                     filter_weight=fw, sequential=True)
 
     return wave
+
+
+def shutter_time(sample_idx, spp: int, device) -> torch.Tensor:
+    """A wave's shutter time in [0, 1), a 0-d float32 tensor: the wave's
+    stratum of spp, jittered by hash(0, sample_idx, 0x51)."""
+    s = torch.as_tensor(sample_idx, dtype=torch.int32, device=device).reshape(1)
+    u = rng.hash_float(torch.zeros(1, dtype=torch.int32, device=device), s, 0x51)[0]
+    return (s[0].to(torch.float32) + u) / spp
+
+
+def scene_at_shutter(scene, sample_idx, spp: int):
+    """A moving scene's tables (tensors) at the wave's shutter time: the
+    vertices, normals and shading records lerped as a + t (b - a), exact
+    where b == a."""
+    t = shutter_time(sample_idx, spp, scene.tri_p.device)
+    lerp = lambda a, b: a + t * (b - a)
+    return scene.replace(tri_p=lerp(scene.tri_p, scene.tri_p_end),
+                         tri_n=lerp(scene.tri_n, scene.tri_n_end),
+                         tri_shade=lerp(scene.tri_shade, scene.tri_shade_end))
 
 
 def render(scene, dbvh, cam, spp: int = 16, sampler: str = "sobol", seed: int = 0,

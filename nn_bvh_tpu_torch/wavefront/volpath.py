@@ -28,6 +28,12 @@ lane order never changes a value: on a CUDA backend the lane state is
 re-sorted once a bounce (dead, octant, Morton), and `make_phased_wave` cuts
 the state to a shrinking ladder of lane counts as lanes die.
 
+Two faults of the JAX package's VolPath are mirrored, so that images
+match: it draws no shutter time for a moving camera (`init_state` calls
+generate_rays without u_time, so the camera renders at shutter open), and
+an escaped ray's light-sampling pdf leaves out the portal strategy
+(`add_emission` adds the uniform-infinite and env-map terms only).
+
 Traversal runs under no_grad and on detached rays: gradients reach shading
 only, as in the JAX package (which stops gradients there). No TPU kernel has
 a backward pass (`custom_vjp` appears only in the split learner), so the
@@ -99,8 +105,10 @@ class VolCtx(NamedTuple):
     kinds: frozenset                  # the scene's material tags (bxdf.scene_kinds)
     med_all: torch.Tensor | None
     light_all: torch.Tensor | None
-    inf_sel_pmf: torch.Tensor | None  # selection pmf of the infinite lights
-    has_inf: bool
+    light_tags: frozenset             # the scene's light tags (lights.scene_tags)
+    inf_sel_pmf: torch.Tensor | None  # selection pmf of the uniform infinite lights
+    env_sel_pmf: torch.Tensor | None  # selection pmf of the env-map lights
+    has_escape: bool                  # a uniform infinite light or an env map
     do_resort: bool
     sort_blo: torch.Tensor
     sort_bext: torch.Tensor
@@ -112,19 +120,23 @@ def make_context(scene, cam, sampler_cfg, cfg: IntegratorConfig, ls_tables,
     light sampler tables are built when ls_tables is None."""
     if ls_tables is None:
         ls_tables = lightsamplers.build(scene, cfg.light_sampler, scene.tri_p.device)
-    light_all = inf_sel_pmf = None
-    has_inf = False
+    light_all = inf_sel_pmf = env_sel_pmf = None
+    tags = frozenset()
+    has_escape = False
     if scene.n_lights > 0:
         light_all = lights.light_records(scene)
-        is_inf = scene.light_type == scene_mod.LIGHT_UNIFORM_INFINITE
-        has_inf = bool(is_inf.any())
-        inf_sel_pmf = torch.where(is_inf, ls_tables.pmf, 0.0).sum()
+        tags = lights.scene_tags(scene)
+        has_escape = scene_mod.LIGHT_UNIFORM_INFINITE in tags or lights.has_env_map(scene)
+        sel_pmf_of = lambda tag: torch.where(scene.light_type == tag, ls_tables.pmf, 0.0).sum()
+        inf_sel_pmf = sel_pmf_of(scene_mod.LIGHT_UNIFORM_INFINITE)
+        env_sel_pmf = sel_pmf_of(scene_mod.LIGHT_IMAGE_INFINITE)
     blo = scene.bounds[0]
     return VolCtx(
         scene=scene, cam=cam, sampler_cfg=sampler_cfg, cfg=cfg, ls_tables=ls_tables,
         isect=isect, mat_all=bxdf.material_records(scene), kinds=bxdf.scene_kinds(scene),
         med_all=media.medium_records(scene) if scene.n_media > 0 else None,
-        light_all=light_all, inf_sel_pmf=inf_sel_pmf, has_inf=has_inf,
+        light_all=light_all, light_tags=tags, inf_sel_pmf=inf_sel_pmf,
+        env_sel_pmf=env_sel_pmf, has_escape=has_escape,
         do_resort=cfg.resort and isect.backend in dispatch.CUDA_BACKENDS,
         sort_blo=blo, sort_bext=torch.clamp(scene.bounds[1] - blo, min=1e-9))
 
@@ -383,7 +395,7 @@ def sample_ld(ctx: VolCtx, depth: int, p_ref, ns, wo_world, ctx_mat, is_med, g_m
     u_sel, ulu, ulv = rand(depth, 11), rand(depth, 12), rand(depth, 13)
     light_id, sel_pmf, _ = lightsamplers.sample_ctx(ctx.ls_tables, p_ref, u_sel)
     ls = lights.sample_li(scene, ctx.light_all, light_id, p_ref, lam,
-                          torch.stack([ulu, ulv], -1))
+                          torch.stack([ulu, ulv], -1), ctx.light_tags)
     wi_l = ls.wi
     f_b, pdf_b = bxdf.evaluate(ctx_mat, vm.to_local(ns, wo_world), vm.to_local(ns, wi_l))
     f_surf = f_b * vm.absdot(wi_l, ns)[..., None]
@@ -415,10 +427,14 @@ def add_emission(ctx: VolCtx, depth: int, o, d, L, beta, r_u, r_l, active, specu
     if scene.n_lights == 0:
         return L
     R = o.shape[0]
-    if ctx.has_inf:  # without an infinite light an escaped ray adds nothing
+    if ctx.has_escape:  # without an infinite light an escaped ray adds nothing
         escaped = active & ~found
         le_inf = lights.infinite_le(scene, d, lam)
-        p_li = (sampling.UNIFORM_SPHERE_PDF * ctx.inf_sel_pmf).expand(R)
+        # the JAX package leaves the portal strategy out of this pdf (mirrored)
+        p_li = sampling.UNIFORM_SPHERE_PDF * ctx.inf_sel_pmf
+        if lights.has_env_map(scene):
+            p_li = p_li + ctx.env_sel_pmf * lights.env_pdf_dir(scene, d)
+        p_li = p_li.expand(R)
         denom = torch.where(specular_prev, _avg(r_u), _avg(r_u + r_l * p_li[..., None]))
         L = L + torch.where((escaped & (denom > 0))[..., None],
                             beta * le_inf / torch.clamp(denom, min=1e-30)[..., None], 0.0)
@@ -617,8 +633,8 @@ def make_phased_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, isect
     ls_tables = lightsamplers.build(scene, cfg.light_sampler, device)
     if isect is None:
         isect = dispatch.make_intersectors(scene, dbvh, device, sort=not cfg.resort)
-    ctx = make_context(scene_mod.to_device(scene, device), cam, sampler_cfg, cfg, ls_tables,
-                       isect)
+    ctx = make_context(scene_mod.to_device(scene, device), cam,
+                       samplers.to_device(sampler_cfg, device), cfg, ls_tables, isect)
     R = cam.width * cam.height
     sizes = ladder(R)
 

@@ -285,8 +285,9 @@ def test_dispatch_backend_follows_device(small_scene):
 
 
 def test_scene_from_numpy_refuses_unported_features():
-    """Textures (a textured material, a texture-driven mix amount) and point
-    lights are still unported: refused, naming their ROADMAP item."""
+    """Textures (a textured material, a texture-driven mix amount) and the
+    two lights that read the texture atlas (projection, goniometric) are
+    still unported: refused, naming their ROADMAP item."""
     def jax_scene(feature):
         b = j_scene.SceneBuilder()
         m = b.add_material("diffuse")
@@ -294,14 +295,16 @@ def test_scene_from_numpy_refuses_unported_features():
             m = b.add_material("diffuse", texture=b.add_texture_checker())
         elif feature == "mix_texture_amount":
             m = b.add_material("mix", mix_materials=(m, m), mix_amount=-1.0)
+        elif feature == "projection_light":
+            b.add_projection_light((0, 2, 0), (0, -1, 0), np.ones((4, 4, 3), np.float32))
         else:
-            b.add_point_light((0, 2, 0))
+            b.add_goniometric_light((0, 2, 0), np.ones((4, 4, 3), np.float32))
         b.add_quad((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0), m)
         sc, dbvh, _ = j_accel.build_scene_bvh(b.build())
         return sc, dbvh
 
     for feature, item in (("texture", "item 3"), ("mix_texture_amount", "item 3"),
-                          ("point_light", "item 2")):
+                          ("projection_light", "item 3"), ("goniometric_light", "item 3")):
         sc, dbvh = jax_scene(feature)
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
             scene.scene_from_numpy(sc._asdict(), dbvh._asdict(), "cpu")

@@ -457,3 +457,79 @@ def test_lab_kernel_raises_on_stack_overflow():
             assert all(torch.equal(a, b) for a, b in zip(out, ref))
         with pytest.raises(kernel_lab.StackOverflow):
             kernel_lab.lab_traverse(nodes, tris, o, d, t_max, rows=8, k_pop=4, cluster=cluster)
+
+
+def _small_lights(env="image"):
+    b = bench_scene.small_lights_scene(scene.SceneBuilder(), env)
+    sc, dbvh, _ = accel.build_scene_bvh(b.build())
+    return sc, dbvh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda_bvh4", "cuda_binary", "cuda_bvh8"])
+def test_quadric_merge_on_cuda(backend):
+    """The quadrics' min-t merge after each CUDA kernel against the same
+    merge after the plain traversal, under the kernels' contract
+    (bench_scene.check_hits), then a Path wave of the lights scene (every
+    light, the light BVH, Halton) through both: equal films."""
+    _need_card()
+    sc, dbvh = _small_lights()
+    kern = dispatch.make_intersectors(sc, dbvh, "cuda", backend=backend)
+    plain = dispatch.make_intersectors(sc, dbvh, "cuda", backend="plain")
+    o, d, t_max = _rays("cuda")
+    hk, hp = kern.closest(o, d, t_max), plain.closest(o, d, t_max)
+    bench_scene.check_hits(hk, hp, t_max, False, f"{backend} closest")
+    assert bool((hk.prim >= kern.quad_base).any())
+    bench_scene.check_hits(kern.any_hit(o, d, t_max), plain.any_hit(o, d, t_max), t_max, True,
+                           f"{backend} any-hit")
+    cam = bench_scene.small_lights_camera(camera, 48)
+    cfg = integrator.IntegratorConfig(max_depth=4, rr_depth=2, light_sampler="bvh")
+    scfg = samplers.make_sampler("halton", seed=0, spp=4)
+    films = []
+    for isect in (kern, plain):
+        wave = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=isect)
+        films.append(wave(wave(film.make_film(cam.height, cam.width, "cuda"), 0), 1).xyz)
+    assert torch.equal(films[0], films[1]) and float(films[0].mean()) > 0
+
+
+@pytest.mark.cuda
+def test_motion_repack_on_cuda():
+    """A moving scene's per-wave triangle records, rebuilt on the card, equal
+    bvh4.pack_tris_cuda of the lerped vertices bit for bit, and its waves
+    through cuda_bvh4 meet the contract on every batch against the plain
+    traversal on the same lerped tables."""
+    _need_card()
+    sc, dbvh, _ = bench_scene.build_motion_scene(64)
+    cam = bench_scene.motion_camera(64)
+    tsc = scene.to_device(sc, "cuda")
+    lerped = integrator.scene_at_shutter(tsc, 3, 16).tri_p
+    rec = dispatch.tri_table_device("cuda_bvh4", lerped).cpu().numpy()
+    ref = bvh4.pack_tris_cuda(lerped.cpu().numpy())
+    assert np.array_equal(rec.view(np.uint32), ref.view(np.uint32))
+    cfg, scfg = bench_scene.bench_config()
+    checked = bench_scene.CheckedIntersectors(
+        dispatch.make_intersectors(sc, dbvh, "cuda"),
+        dispatch.make_intersectors(sc, dbvh, "cuda", backend="plain"), "motion")
+    wave = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=checked)
+    f = film.make_film(cam.height, cam.width, "cuda")
+    for s in range(3):
+        f = wave(f, s)
+    assert len(checked.sizes) > 3 and float(film.develop(f).mean()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fullsobol", "pmj02bn"])
+def test_sampler_tables_on_card(kind):
+    """A sampler's tables are made on the CPU; draws on the card after
+    samplers.to_device equal the CPU's bit for bit, and draws on the card
+    from tables left on the CPU raise instead of copying them each call."""
+    _need_card()
+    scfg = samplers.make_sampler(kind, seed=3, spp=16, width=64)
+    pix = torch.arange(4096, dtype=torch.int32)
+    smp = pix % 16
+    on_cpu = samplers.get_2d(scfg, pix, smp, 7)
+    on_card = samplers.get_2d(samplers.to_device(scfg, "cuda"), pix.cuda(), smp.cuda(), 7)
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    with pytest.raises(RuntimeError):
+        samplers.get_1d(scfg, pix.cuda(), smp.cuda(), 7)

@@ -205,6 +205,9 @@ def test_port_imports_no_jax():
             "for m in pkgutil.walk_packages(nn_bvh_tpu_torch.__path__, 'nn_bvh_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "assert 'nn_bvh_tpu_torch.tools.trav_prof' in sys.modules\n"
+            "for m in ('geometry.quadrics', 'geometry.animated', 'scatter.portal',\n"
+            "          'scatter.lights', 'scatter.lightsamplers', 'core.lowdiscrepancy'):\n"
+            "    assert 'nn_bvh_tpu_torch.' + m in sys.modules, m\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'nn_bvh_tpu' or m.startswith('nn_bvh_tpu.')]\n"

@@ -488,9 +488,10 @@ def test_wave_dispatch_rule():
 
 @pytest.mark.parametrize("extra", ["none", "env_map", "sphere_light", "quadric"])
 def test_scene_check_takes_media_refuses_the_rest(extra):
-    """scene_from_numpy carries media across; what VolPath reads but the
-    port does not have (image env maps, sphere area lights) and analytic
-    quadrics still raise, naming their ROADMAP item."""
+    """scene_from_numpy carries media across, and with them image env maps,
+    sphere area lights and analytic quadrics; what is left unported (a
+    goniometric light, which reads the texture atlas) still raises, naming
+    its ROADMAP item."""
     b = j_scene.SceneBuilder()
     m = b.add_material("diffuse")
     fog = b.add_medium(sigma_a=(0.1, 0.1, 0.1), sigma_s=(0.5, 0.5, 0.5))
@@ -509,5 +510,13 @@ def test_scene_check_takes_media_refuses_the_rest(extra):
         assert np.array_equal(tsc.tri_shade[:, 26:28].numpy(), np.asarray(sc.tri_shade)[:, 26:28])
         assert (tsc.tri_shade[:, 26] == fog).any()
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
-            scene.scene_from_numpy(sc._asdict(), dbvh._asdict(), "cpu")
+        tsc, _ = scene.scene_from_numpy(sc._asdict(), dbvh._asdict(), "cpu")
+        assert tsc.n_media == 1
+        np.testing.assert_array_equal(tsc.env_luminance.numpy(), np.asarray(sc.env_luminance))
+        np.testing.assert_array_equal(tsc.light_type.numpy(), np.asarray(sc.light_type))
+        assert tsc.n_quadrics == (extra == "quadric")
+        np.testing.assert_array_equal(tsc.tri_shade.numpy(), np.asarray(sc.tri_shade))
+    b.add_goniometric_light((0, 2, 0), np.ones((4, 4, 3), np.float32))
+    sc, dbvh, _ = j_accel.build_scene_bvh(b.build())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
+        scene.scene_from_numpy(sc._asdict(), dbvh._asdict(), "cpu")
