@@ -154,7 +154,31 @@ points, once per traversal backend, and checks it:
    copies a wave (torch.profiler), bvh4_traverse launches (equal to the
    traversal calls, no other kernel), peak memory, the image finite with
    mean > 0, and the same seed through the plain traversal within phase 5's
-   rule (17.2: each backend's film against cuda_bvh4's).
+   rule (17.2: each backend's film against cuda_bvh4's);
+18. the treeNet learner (learn/): `cli.train` at its defaults (levels 4,
+   capacity 128, 2,048-prim clouds, EPO, batch 8) for 2 steps, finite
+   history lines; 18.1 the same configuration trained on the bench
+   geometry (`bench_scene.treenet_scene`: the floor static, the 24 spheres
+   movable) through `trainer.make_train_step`: a warm-up step, then 10
+   steps by CUDA events (median, min, max), peak memory, CUDA kernels and
+   copies a step (torch.profiler), device busy time a step (the summed
+   durations of the device's events), every loss finite, with its
+   tree_loss, pen_loss and thetas out of [0, 1]; one batch-1 step from the
+   same weights on the card and on the CPU: losses within rtol 1e-4,
+   gradients within 1e-3 of each tensor's largest |g|; 18.2 one timed step
+   of the SAH (point) variant; 18.3 the trained model's Adam step count and
+   loss parts on the bench cloud, its planes for that cloud, their SAH/EPO
+   cost (`tree_eval`) beside the greedy tree's, the scene rebuilt through them
+   (`joint.rebuild_scene_with_predicted_tree`: `export.planes_to_bvh`,
+   `accel.apply_bvh_to_scene`), its bench wave through cuda_bvh4 equal to
+   the SAH film by phase 5's rule, and bvh4_traverse device ms over a
+   wave's batches on both trees, warm and with L2 flushed; 18.4 one joint
+   step (`joint.make_joint_step`) on phase 14's configuration (the bench
+   wave, RR off) over the predicted BVH with the tree branch at full width:
+   time, peak memory, launches = traversal calls, gnorm_tree and gnorm_mat
+   finite and > 0 (the step updates 18.1's model in place, after 18.3 has
+   read it). Its main path's launches (the wave and the joint step)
+   count in bvh4_traverse's.
 
 Any failure raises (exit code != 0). The last two lines of standard output
 are a JSON record of the kernels and {"ok": true, "device": {...}}.
@@ -1133,6 +1157,197 @@ def phase_lights(torch, dev) -> int:
     return total
 
 
+def max_rel_to_max(got, want) -> float:
+    """max |got - want| over max |want| (each tensor's largest-|g| rule)."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def wave_traversal_ms(torch, sc, dbvh, cam, dev):
+    """bvh4_traverse device ms over the batches of one bench wave on this
+    tree (bench_scene.wave_batches): (warm, L2 flushed before each call,
+    batches)."""
+    from nn_bvh_tpu_torch.accel import dispatch
+    from nn_bvh_tpu_torch.tools import bench_scene as bs
+
+    isect = dispatch.make_intersectors(sc, dbvh, dev)
+    calls = [functools.partial(isect.fn, *isect.tables, *b)
+             for b in bs.wave_batches(sc, dbvh, cam, dev)]
+    return (sum(bs.device_ms(c) for c in calls), sum(bs.device_ms(c, cold=True) for c in calls),
+            len(calls))
+
+
+def phase_learner(torch, sc, dbvh, cam, dev, ref_film) -> int:
+    """Phase 18 (see the module doc) -> bvh4_traverse launches of its main
+    path (the wave on the predicted BVH and the joint step)."""
+    import contextlib
+    import io
+    import math
+
+    from nn_bvh_tpu_torch import devices
+    from nn_bvh_tpu_torch.accel import dispatch
+    from nn_bvh_tpu_torch.cli import train as cli_train
+    from nn_bvh_tpu_torch.core import samplers
+    from nn_bvh_tpu_torch.geometry import scene as scene_mod
+    from nn_bvh_tpu_torch.learn import joint, trainer, tree_eval, treenet
+    from nn_bvh_tpu_torch.scatter import lightsamplers
+    from nn_bvh_tpu_torch.tools import bench_scene as bs
+    from nn_bvh_tpu_torch.wavefront import integrator
+
+    t0 = time.perf_counter()
+    secs = lambda: f"[{time.perf_counter() - t0:.0f} s]"
+    devices.full_float32()
+    # the CLI at its defaults: levels 4, capacity 128, 2,048 prims, EPO, batch 8
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_train.main(["--steps", "2", "--log-every", "1"])
+    hist = [json.loads(x) for x in out.getvalue().splitlines()]
+    check(len(hist) == 2 and all(math.isfinite(v) for h in hist for v in h.values()),
+          f"cli.train history {hist}")
+    print(f"phase 18: cli.train at its defaults (procedural scene), 2 steps: {hist} {secs()}",
+          flush=True)
+
+    # 18.1 training at full width on the bench geometry
+    cfg = treenet.TreeNetConfig()
+    tscene = bs.treenet_scene()
+    state = trainer.make_train_state(cfg, seed=0, device=dev)
+    carried = treenet.params_to_numpy(state.model)
+    step = trainer.make_train_step(cfg)
+    batch, n = 8, 10
+    clouds = [torch.as_tensor(tscene.next_batch(batch), device=dev) for _ in range(n + 1)]
+    state, _ = step(state, clouds[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times, losses, parts = [], [], []
+    for c in clouds[1:]:
+        ms, (state, m) = event_ms(torch, lambda: step(state, c))
+        times.append(ms)
+        losses.append(float(m["loss"]))
+        parts.append((float(m["tree_loss"]), float(m["pen_loss"]),
+                      int(m["out_of_bounds_splits"])))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    # a theta per axis of every interior node (levels 0 .. levels-2) of every cloud
+    n_thetas = batch * 3 * sum(6 ** l for l in range(cfg.levels - 1))
+    n_k = cuda_kernel_count(torch, lambda: step(state, clouds[1]))
+    busy = bs.profiler_us(lambda: step(state, clouds[1]), n=3) / 1e3
+    med = float(sorted(times)[n // 2])
+    print(f"phase 18: 18.1 treeNet EPO (levels {cfg.levels}, capacity {cfg.capacity}, "
+          f"{cfg.pc_size} prims, batch {batch}) on the bench geometry: {med:.1f} ms a step "
+          f"(median of {n} by CUDA events, min {min(times):.1f}, max {max(times):.1f}), "
+          f"peak memory {peak:.1f} MiB above {base / 2**20:.1f} MiB, CUDA kernels and copies a "
+          f"step {n_k}, device busy {busy:.1f} ms a step (torch.profiler, device events, 3 "
+          f"steps); losses {losses}; (tree_loss, pen_loss, thetas out of [0, 1] of "
+          f"{n_thetas}) {parts} {secs()}", flush=True)
+
+    # one step at batch 1 from the same carried weights, card against CPU
+    c1 = tscene.next_batch(1)
+
+    def batch1_step(d):
+        model = treenet.params_from_jax(carried, cfg, device=d)
+        loss, _ = treenet.loss_fn(model, cfg, torch.as_tensor(c1, device=d))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return loss.item(), [g.cpu() for g in grads]
+
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = batch1_step(dev), batch1_step(torch.device("cpu"))
+    err = max(max_rel_to_max(a, b) for a, b in zip(g_gpu, g_cpu))
+    check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu), f"card loss {l_gpu} vs CPU {l_cpu}")
+    check(err <= 1e-3, f"card gradients differ from the CPU's by {err:.3g} of the largest |g|")
+    print(f"phase 18: 18.1 card vs CPU, one batch-1 step from the same weights: loss "
+          f"{l_gpu:.7g} vs {l_cpu:.7g} (rtol 1e-4), gradients within {err:.3g} of each tensor's "
+          f"largest |g| (< 1e-3) {secs()}", flush=True)
+
+    # 18.2 the SAH variant (points)
+    cfg_sah = cfg._replace(epo=False)
+    st = trainer.make_train_state(cfg_sah, seed=0, device=dev)
+    sstep = trainer.make_train_step(cfg_sah)
+    pts = [torch.as_tensor(tscene.to_points(tscene.next_batch(batch)), device=dev)
+           for _ in range(2)]
+    st, _ = sstep(st, pts[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms, (st, m) = event_ms(torch, lambda: sstep(st, pts[1]))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    check(math.isfinite(float(m["loss"])), f"SAH loss {m}")
+    print(f"phase 18: 18.2 treeNet SAH (points, batch {batch}): {ms:.1f} ms a step (CUDA events, "
+          f"after a warm-up), peak memory {peak:.1f} MiB, loss {float(m['loss']):.6g} {secs()}",
+          flush=True)
+
+    # 18.3 the predicted tree: plane costs, the rebuilt BVH, its wave
+    cloud = joint.scene_cloud(sc, cfg.pc_size, batch=1)
+    with torch.no_grad():
+        _, pm = treenet.loss_fn(state.model, cfg, torch.as_tensor(cloud, device=dev))
+    pm = {k: float(v) for k, v in pm.items()}
+    # Adam's own count: the counted and profiled steps update the model in place
+    # but their states (and TrainState.step) are not kept
+    n_adam = int(state.optimizer.state[next(state.model.parameters())]["step"])
+    _, planes = treenet.predict_tree(state.model, cfg, torch.as_tensor(cloud, device=dev))
+    pred = tree_eval.build_tree_from_planes(cloud[0], planes[0].cpu().numpy())
+    greedy = tree_eval.build_tree_from_planes(cloud[0],
+                                              tree_eval.greedy_tree(cloud[0], cfg.levels))
+    costs = {name: (tree_eval.sah_cost(root), tree_eval.epo_cost(root, cloud[0]))
+             for name, root in (("predicted", pred), ("greedy", greedy))}
+    sc2, dbvh2, _ = joint.rebuild_scene_with_predicted_tree(sc, state.model, cfg,
+                                                            pc_size=cfg.pc_size)
+    xyz, counts, calls, sec = one_wave(torch, sc2, dbvh2, cam, dev, "cuda_bvh4")
+    launches = counts.get("bvh4_traverse", 0)
+    check(launches == calls and set(counts) == {"bvh4_traverse"},
+          f"predicted-tree wave: launches {counts}, {calls} traversal calls")
+    close, rel = film_agreement(xyz, ref_film)
+    check(close >= 0.995 and rel <= 1e-3,
+          f"predicted-tree film agrees with the SAH film on {close:.5f} of pixels, mean rel "
+          f"diff {rel:.3g}")
+    trav = {name: wave_traversal_ms(torch, s, b, cam, dev)
+            for name, (s, b) in (("SAH", (sc, dbvh)), ("predicted", (sc2, dbvh2)))}
+    print(f"phase 18: 18.3 the model after {n_adam} Adam steps (18.1's warm-up, timed, "
+          f"counted and profiled steps) on the bench scene's cloud: tree_loss "
+          f"{pm['tree_loss']:.6g}, pen_loss {pm['pen_loss']:.6g}, "
+          f"{pm['out_of_bounds_splits']:.0f} of {n_thetas // batch} thetas out of [0, 1]; "
+          f"predicted planes {planes[0].cpu().numpy().round(4).tolist()}; "
+          f"plane-tree cost (tree_eval, the bench cloud of {cfg.pc_size} prims) SAH/EPO "
+          f"predicted {costs['predicted'][0]:.4f}/{costs['predicted'][1]:.4f}, greedy "
+          f"{costs['greedy'][0]:.4f}/{costs['greedy'][1]:.4f}; rebuilt BVH {dbvh2.n_nodes} "
+          f"binary nodes (SAH {dbvh.n_nodes}); its bench wave through cuda_bvh4 in {sec:.3f} s, "
+          f"{launches} launches = traversal calls, film vs the SAH film: {close:.6f} of pixels, "
+          f"mean rel diff {rel:.3g}; bvh4_traverse device ms over the wave's batches warm / "
+          f"L2 flushed: SAH {trav['SAH'][0]:.4f} / {trav['SAH'][1]:.4f} ({trav['SAH'][2]} "
+          f"batches), predicted {trav['predicted'][0]:.4f} / {trav['predicted'][1]:.4f} "
+          f"({trav['predicted'][2]} batches) {secs()}", flush=True)
+
+    # 18.4 one joint step on phase 14's configuration, the tree at full width
+    rcfg = integrator.IntegratorConfig(max_depth=DEPTH, mis=True, rr_depth=99)
+    scfg = samplers.make_sampler("sobol", seed=0, spp=16)
+    tsc2 = scene_mod.to_device(sc2, dev)
+    lst = lightsamplers.build(tsc2, rcfg.light_sampler, dev)
+    isect = dispatch.make_intersectors(sc2, dbvh2, dev)
+    pix = torch.arange(cam.width * cam.height, dtype=torch.int32, device=dev)
+    jclouds = torch.as_tensor(joint.scene_cloud(sc2, cfg.pc_size, batch=batch), device=dev)
+    jstep = joint.make_joint_step(cfg, cam, scfg, rcfg)
+    jstate = joint.JointState(state.model, tsc2.mat_coeffs.detach().clone().requires_grad_(True))
+    run = lambda s: jstep(s, tsc2, None, lst, jclouds, pix, 0, isect)
+    jstate, _ = run(jstate)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    isect.n_calls = 0
+    ms, (jstate, jm) = event_ms(torch, lambda: run(jstate))
+    counts = launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    check(counts.get("bvh4_traverse", 0) == isect.n_calls > 0 and set(counts) == {"bvh4_traverse"},
+          f"joint step launches {counts}, {isect.n_calls} traversal calls")
+    jm = {k: float(v) for k, v in jm.items()}
+    for k in ("gnorm_tree", "gnorm_mat"):
+        check(math.isfinite(jm[k]) and jm[k] > 0, f"joint step {k} {jm[k]}")
+    check(all(math.isfinite(v) for v in jm.values()), f"joint step metrics {jm}")
+    print(f"phase 18: 18.4 joint step (bench wave on the predicted BVH, depth {DEPTH}, RR off, "
+          f"tree batch {batch}): forward + backward + update {ms:.1f} ms by CUDA events, peak "
+          f"memory {peak:.1f} MiB above {base / 2**20:.1f} MiB, {counts['bvh4_traverse']} "
+          f"launches = traversal calls; {jm} {secs()}", flush=True)
+    return launches + counts["bvh4_traverse"]
+
+
 def main() -> int:
     import torch
 
@@ -1219,6 +1434,7 @@ def main() -> int:
     phase_volpath(torch, sc, dbvh, cam, dev)
     phase_materials(torch, dev)
     out[0]["launches"] += phase_lights(torch, dev)
+    out[0]["launches"] += phase_learner(torch, sc, dbvh, cam, dev, ref_film)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,9 +15,12 @@ Conventions of the port:
   missing: they raise.
 - Dtypes are explicit: every tensor the port makes is float32, int32 or
   int64 on purpose (host numpy arrays are float64 by default and
-  `torch.from_numpy` keeps that).
+  `torch.from_numpy` keeps that). The learner's entry points (its CLIs)
+  turn TF32 off for their process (`devices.full_float32`); the library's
+  functions leave the setting alone.
 - Randomness is the counter hash of `core/rng.py`; no `torch.Generator`
-  sits on the render path.
+  sits on the render path. The learner's initial weights come from a
+  `torch.Generator` seeded from `--seed`; no global RNG is used.
 - Hand-written CUDA kernels live in `csrc/` and are built at first use by
   `kernels.load` into `build/kernels/` at the repository root.
 
@@ -27,7 +30,9 @@ lights, with every traversal backend
 of the JAX package (BVH4, binary, deep-stack binary, BVH8) as a CUDA kernel,
 VolPath over homogeneous and grid media (`wavefront/volpath.py`, with the
 phased wave), gradients of shading with respect to material and light
-parameters by autograd, and the traversal profiler (`tools/trav_prof.py`).
-Anything else raises NotImplementedError naming the ROADMAP item that ports
-it.
+parameters by autograd, the traversal profiler (`tools/trav_prof.py`),
+and the treeNet split learner with the joint render+train step (`learn/`,
+its CLIs `cli/train.py` and `cli/tree_bench.py`; randomness there comes
+from a torch.Generator seeded by the caller). Anything else raises
+NotImplementedError naming the ROADMAP item that ports it.
 """

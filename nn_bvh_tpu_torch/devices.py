@@ -23,3 +23,13 @@ def resolve_device(device=None, scene=None) -> torch.device:
         raise ValueError("no CUDA device is available: pass device='cpu' (or a "
                          "scene of CPU tensors) to run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def full_float32() -> None:
+    """Float32 products and convolutions on the card in full float32 (TF32
+    off) for the rest of the process, so that a learner's step on the card
+    can be held against the CPU's. Process-wide: only an entry point that
+    owns its process (the learner's CLIs, chip_smoke's learner phase) calls
+    it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -1,5 +1,6 @@
 """What chip_smoke.py and the tools share: the bench scene and its wave's
-configuration, the ray batches that one bench wave hands the traversal
+configuration, the bench geometry as treeNet training data
+(`treenet_scene`), the ray batches that one bench wave hands the traversal
 (`wave_batches`) and chip_smoke's probe batches, the per-warp work of a
 batch (`warp_work`), a traversal call's bound and hit contract, a synthetic
 deep tree for the deep-stack traversal, a synthetic widening tree for the
@@ -7,7 +8,8 @@ lab's stack check, and timing on the card: `device_ms` (device time per
 call, many calls between two CUDA events on a stream held busy while the
 host enqueues them; or, with L2 flushed before each call, the median of
 single calls), `host_us` (the host's time per call), `profiler_us`
-(torch.profiler's device time, also for a call that waits for the device),
+(the summed durations of torch.profiler's device events, also for a call
+that waits for the device),
 `median_ms` (single calls between events; host and device time together,
 kept for the packet kernels) and `time_traversals` (traversal kernels held
 to the contract and timed side by side on named batches)."""
@@ -64,6 +66,18 @@ def bench_geometry(b, sphere_kw=lambda i, c, r: {}):
     b.add_quad((-2, 6, -2), (2, 6, -2), (2, 6, 2), (-2, 6, 2), floor,
                emission_rgb=(1.0, 0.9, 0.8), emission_scale=20.0, two_sided=True)
     return b
+
+
+def treenet_scene():
+    """The bench geometry as treeNet training data (learn.data.Scene at
+    TreeNetConfig's cloud size and its default seed): the floor as the
+    static mesh, the 24 spheres as the movable meshes; the emissive quad is
+    left out."""
+    from ..learn import data, treenet
+
+    b = bench_geometry(scene_mod.SceneBuilder())
+    meshes = [data.tris_to_prims(t) for t in b._tri_p]  # one entry per add_mesh
+    return data.Scene([meshes[24]] + meshes[:24], pc_size=treenet.TreeNetConfig().pc_size)
 
 
 def bench_camera(size: int = BENCH_SIZE):
@@ -735,25 +749,31 @@ def host_us(fn, n: int = 50) -> float:
 
 def profiler_us(fn, match: str = "", n: int = 20) -> float:
     """torch.profiler's device time per call of fn (microseconds) over n
-    calls: of the kernels whose name contains `match`, or of every kernel
-    and copy fn runs (the device's busy time, measurable also for a fn that
-    waits for the device: sorts, compactions). 0.0 when the profiler records
-    no device time. Raises without a card."""
+    calls: the summed durations of the device's own events (kernels, copies
+    and fills) whose name contains `match`; with no match, the device's busy
+    time, measurable also for a fn that waits for the device (sorts,
+    compactions). Only device activity is recorded: a host op's device time
+    is that of the kernels it launched, which would count them twice. 0.0
+    when the profiler records no device event. Raises without a card."""
     from torch.profiler import ProfilerActivity, profile
 
     _need_card("profiler_us")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if match in ev.key:
-            t = getattr(ev, "self_device_time_total", None)
-            total += getattr(ev, "self_cuda_time_total", 0.0) if t is None else t
-    return total / n
+    return device_event_us(prof.events(), match) / n
+
+
+def device_event_us(events, match: str = "") -> float:
+    """The summed durations (microseconds) of the device events (kernels,
+    copies, fills) among torch.profiler's `events` whose name contains
+    `match`; host events, whose device time is that of the kernels they
+    launched, are left out."""
+    return sum(e.time_range.elapsed_us() for e in events
+               if e.device_type.name == "CUDA" and match in e.name)
 
 
 PROFILED = ("camera closest", "bounce d1 closest")

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from nn_bvh_tpu_torch import accel
+from nn_bvh_tpu_torch import accel, devices
 from nn_bvh_tpu_torch.accel import (binary, binary_kernel, bvh4, bvh4_kernel, bvh8_kernel,
                                     dispatch, traverse)
 from nn_bvh_tpu_torch.accel.kernel_launch import n_launches
@@ -533,3 +533,30 @@ def test_sampler_tables_on_card(kind):
         assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
     with pytest.raises(RuntimeError):
         samplers.get_1d(scfg, pix.cuda(), smp.cuda(), 7)
+
+
+@pytest.mark.cuda
+def test_treenet_step_on_card_matches_cpu():
+    """One full-width treeNet EPO step (TreeNetConfig(): levels 4, capacity
+    128, 2,048 prims) at batch 1 on the bench geometry, from the same
+    weights on the card (TF32 off) and on the CPU: the losses within rtol
+    1e-4, each weight's gradient within 1e-3 of its largest |g| on the CPU
+    (chip_smoke 18.1's check)."""
+    _need_card()
+    from nn_bvh_tpu_torch.learn import treenet
+
+    cfg = treenet.TreeNetConfig()
+    weights = treenet.params_to_numpy(treenet.init_params(cfg, 0, "cpu"))
+    clouds = bench_scene.treenet_scene().next_batch(1)
+    devices.full_float32()
+    out = []
+    for dev in ("cuda", "cpu"):
+        model = treenet.params_from_jax(weights, cfg, device=dev)
+        loss, _ = treenet.loss_fn(model, cfg, torch.as_tensor(clouds, device=dev))
+        out.append((loss.item(), [g.cpu() for g in torch.autograd.grad(
+            loss, list(model.parameters()))]))
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert np.isfinite(l_card) and abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    for a, b in zip(g_card, g_cpu):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())

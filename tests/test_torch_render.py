@@ -206,7 +206,9 @@ def test_port_imports_no_jax():
             "    importlib.import_module(m.name)\n"
             "assert 'nn_bvh_tpu_torch.tools.trav_prof' in sys.modules\n"
             "for m in ('geometry.quadrics', 'geometry.animated', 'scatter.portal',\n"
-            "          'scatter.lights', 'scatter.lightsamplers', 'core.lowdiscrepancy'):\n"
+            "          'scatter.lights', 'scatter.lightsamplers', 'core.lowdiscrepancy',\n"
+            "          'learn.splitter', 'learn.treenet', 'learn.joint', 'cli.train',\n"
+            "          'cli.tree_bench'):\n"
             "    assert 'nn_bvh_tpu_torch.' + m in sys.modules, m\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

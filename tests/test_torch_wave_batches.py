@@ -11,6 +11,8 @@ order (camera closest, then shadow any-hit and bounce closest per depth),
 and recording them must not change the film by a bit.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -182,6 +184,17 @@ def test_timing_raises_without_card(monkeypatch, fn):
     with pytest.raises(RuntimeError, match="CUDA card"):
         getattr(bs, fn)(lambda: calls.append(1))
     assert not calls  # nothing was timed on the host instead
+
+
+def test_device_event_us_counts_each_kernel_once():
+    # a host op whose device time is its kernel's, the kernel, a copy
+    ev = lambda name, dev, t0, t1: types.SimpleNamespace(
+        name=name, device_type=types.SimpleNamespace(name=dev),
+        time_range=types.SimpleNamespace(elapsed_us=lambda: t1 - t0))
+    events = [ev("aten::mm", "CPU", 0.0, 50.0), ev("sm90_sgemm_traverse", "CUDA", 10.0, 40.0),
+              ev("Memcpy HtoD", "CUDA", 40.0, 45.0)]
+    assert bs.device_event_us(events) == 35.0
+    assert bs.device_event_us(events, "traverse") == 30.0
 
 
 def test_traversal_bound_charges_records_read():
