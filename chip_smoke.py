@@ -179,6 +179,27 @@ points, once per traversal backend, and checks it:
    finite and > 0 (the step updates 18.1's model in place, after 18.3 has
    read it). Its main path's launches (the wave and the joint step)
    count in bvh4_traverse's.
+19. scene input: `bench_scene.write_pbrt_bench` writes the bench
+   configuration as a .pbrt file into a temporary directory (the 24
+   spheres as three binary plymesh files under a checkerboard, a scaled
+   256^2 imagemap and a mix whose amount is an imagemap; the floor under
+   the 2048^2 PNG written by the port's write_png; the emissive quad; a
+   loopsubdiv shape, curves and an analytic sphere; an infinite light from
+   an equal-area EXR written by the port's write_exr). 19.1:
+   `cli.render.main([scene, "--outfile", out.exr, "--stats"])` on the card
+   (parse, atlas-pack, scene and native BVH build seconds, render seconds,
+   rays/s, atlas MiB, peak memory); the native builder was used; out.exr
+   reads back bit-equal to the returned image, finite with mean > 0.
+   19.2: one wave of the parsed scene with its textures and without (base
+   colors from the rows, mix amounts 0.5, no atlas): ms a wave (CUDA
+   events, the median of 5 after a warm-up), CUDA kernels a wave
+   (torch.profiler), launches = traversal calls. 19.3: the parsed builder
+   plus a projection and a goniometric light, its wave timed in turn with
+   19.2's two (five rounds; the median of each). 19.4: a parsed cloud
+   medium scene, one timed VolPath wave (the phased wave) at 400x400.
+   19.2-19.4 go through phase 17's `scene_waves`: each scene's film
+   through the plain traversal agrees with the cuda_bvh4 film (phase 5's
+   rule). Its launches count in bvh4_traverse's.
 
 Any failure raises (exit code != 0). The last two lines of standard output
 are a JSON record of the kernels and {"ok": true, "device": {...}}.
@@ -986,56 +1007,84 @@ def median_wave_ms(torch, wave, film, first: int, n: int = 3):
     return film, sorted(times)[n // 2]
 
 
-def lights_wave(torch, label, sc, dbvh, cam, cfg, scfg, dev, check_batches=False):
-    """Phase 17's checks and readings of one scene through make_wave_fn on
-    cuda_bvh4 -> (film XYZ of sample 0, bvh4_traverse launches of the timed
-    waves). The same seed through the plain traversal agrees by phase 5's
-    rule; with check_batches every batch of the kernel is also held against
-    the plain traversal on the same batch (bench_scene.CheckedIntersectors)."""
+def scene_waves(torch, phase, scenes: dict, cam, cfg, scfg, dev, rounds: int = 3,
+                profile: bool = True, check_batches: bool = False) -> dict:
+    """Scenes ({label: (host scene, DeviceBVH)}) through make_wave_fn on
+    cuda_bvh4: a warm-up wave each (none when rounds is 1), then `rounds`
+    rounds of one wave of each scene in turn, each wave between its own CUDA
+    events (interleaved, so the host's drift falls on every scene alike).
+    Checks: bvh4_traverse launches = traversal calls in every timed wave;
+    the image finite with mean > 0; sample 0 through the plain traversal
+    gives the cuda_bvh4 film by phase 5's rule, and with check_batches every
+    batch of the kernel is also held against the plain traversal on the
+    same batch (bench_scene.CheckedIntersectors). Reads the median ms, CUDA
+    kernels and copies a wave (torch.profiler, with profile) and a wave's
+    peak memory -> {label: dict(xyz=film XYZ of sample 0, ms=median ms,
+    kernels=, launches=bvh4_traverse launches of the timed waves)}."""
     from nn_bvh_tpu_torch.accel import dispatch
     from nn_bvh_tpu_torch.tools import bench_scene
     from nn_bvh_tpu_torch.wavefront import film as film_mod, integrator
 
     t0 = time.perf_counter()
     make_film = lambda: film_mod.make_film(cam.height, cam.width, dev)
-    isect = dispatch.make_intersectors(sc, dbvh, dev)
-    check(isect.backend == "cuda_bvh4", f"CUDA picked {isect.backend}")
-    wave = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=isect)
-    film = wave(make_film(), 0)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base_mem = torch.cuda.memory_allocated()
-    reset_counts()
-    isect.n_calls = 0
-    film, ms = median_wave_ms(torch, wave, film, 1)
-    counts = launch_counts()
-    launches = counts.get("bvh4_traverse", 0)
-    check(set(counts) == {"bvh4_traverse"} and launches == isect.n_calls,
-          f"{label}: launches {counts} for {isect.n_calls} traversal calls")
-    peak = torch.cuda.max_memory_allocated() - base_mem
-    img = film_mod.develop(film)
-    mean = float(img.mean())
-    check(bool(torch.isfinite(img).all()) and mean > 0, f"{label}: bad image, mean {mean}")
-    n_k = cuda_kernel_count(torch, lambda: wave(film, 4))
-    plain = dispatch.make_intersectors(sc, dbvh, dev, backend="plain")
-    k_isect = bench_scene.CheckedIntersectors(isect, plain, label) if check_batches else isect
-    f_k = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=k_isect)(make_film(), 0)
-    f_p = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=plain)(make_film(), 0)
-    close, rel = film_agreement(f_k.xyz, f_p.xyz)
-    check(close >= 0.995 and rel <= 1e-3, f"{label}: film agrees with the plain traversal on "
-          f"{close:.5f} of pixels, mean rel diff {rel:.3g}")
-    extra = ""
-    if check_batches:
-        extra = (f"; the kernel held against plain on all {len(k_isect.sizes)} batches of "
-                 f"wave 0, contract met, {k_isect.ties} tie lanes")
-    print(f"phase 17: {label}: {ms:.1f} ms a wave (CUDA events, median of 3 after a "
-          f"warm-up), {launches / 3:.1f} bvh4_traverse launches a wave = traversal calls, "
-          f"CUDA kernels and copies a wave (torch.profiler): "
-          f"{n_k if n_k is not None else 'not measured'}, peak memory {peak / 2**20:.1f} MiB "
-          f"above {base_mem / 2**20:.1f} MiB; image mean {mean:.6f}; the same seed through "
-          f"the plain traversal: film XYZ agrees on {close:.6f} of pixels, mean rel diff "
-          f"{rel:.3g}{extra} [{time.perf_counter() - t0:.0f} s]", flush=True)
-    return f_k.xyz, launches
+    runs = {}
+    for label, (sc, dbvh) in scenes.items():
+        isect = dispatch.make_intersectors(sc, dbvh, dev)
+        check(isect.backend == "cuda_bvh4", f"CUDA picked {isect.backend}")
+        wave = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=isect)
+        film = make_film()
+        if rounds > 1:
+            film = wave(film, 0)  # warm-up
+        runs[label] = dict(sc=sc, dbvh=dbvh, isect=isect, wave=wave, film=film, ms=[],
+                           launches=0, peak=0, base=None)
+    for r in range(rounds):
+        for label, run in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts()
+            run["isect"].n_calls = 0
+            ms, run["film"] = event_ms(torch, lambda: run["wave"](run["film"], 1 + r))
+            counts = launch_counts()
+            n = counts.get("bvh4_traverse", 0)
+            check(set(counts) == {"bvh4_traverse"} and n == run["isect"].n_calls,
+                  f"{label}: launches {counts} for {run['isect'].n_calls} traversal calls")
+            run["peak"] = max(run["peak"], torch.cuda.max_memory_allocated() - base)
+            run["base"] = base if run["base"] is None else run["base"]
+            run["ms"].append(ms)
+            run["launches"] += n
+    out = {}
+    for label, run in runs.items():
+        sc, dbvh, isect = run["sc"], run["dbvh"], run["isect"]
+        img = film_mod.develop(run["film"])
+        mean = float(img.mean())
+        check(bool(torch.isfinite(img).all()) and mean > 0, f"{label}: bad image, mean {mean}")
+        n_k = (cuda_kernel_count(torch, lambda: run["wave"](run["film"], rounds + 1))
+               if profile else None)
+        plain = dispatch.make_intersectors(sc, dbvh, dev, backend="plain")
+        k_isect = bench_scene.CheckedIntersectors(isect, plain, label) if check_batches else isect
+        f_k = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=k_isect)(make_film(), 0)
+        f_p = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=plain)(make_film(), 0)
+        close, rel = film_agreement(f_k.xyz, f_p.xyz)
+        check(close >= 0.995 and rel <= 1e-3, f"{label}: film agrees with the plain traversal "
+              f"on {close:.5f} of pixels, mean rel diff {rel:.3g}")
+        extra = ""
+        if check_batches:
+            extra = (f"; the kernel held against plain on all {len(k_isect.sizes)} batches of "
+                     f"wave 0, contract met, {k_isect.ties} tie lanes")
+        ms = sorted(run["ms"])[rounds // 2]
+        others = f", interleaved with {len(runs) - 1} other scene(s)" if len(runs) > 1 else ""
+        print(f"phase {phase}: {label}: {ms:.2f} ms a wave (CUDA events, the median of {rounds}"
+              f"{' after a warm-up' if rounds > 1 else ', no warm-up'}{others}; all: "
+              f"{', '.join(f'{t:.1f}' for t in run['ms'])}), {run['launches'] / rounds:.1f} "
+              f"bvh4_traverse launches a wave = traversal calls, CUDA kernels and copies a "
+              f"wave (torch.profiler): {n_k if n_k is not None else 'not measured'}, peak "
+              f"memory {run['peak'] / 2**20:.1f} MiB above {run['base'] / 2**20:.1f} MiB; image "
+              f"mean {mean:.6f}; the same seed through the plain traversal: film XYZ agrees on "
+              f"{close:.6f} of pixels, mean rel diff {rel:.3g}{extra} "
+              f"[{time.perf_counter() - t0:.0f} s]", flush=True)
+        out[label] = dict(xyz=f_k.xyz, ms=ms, kernels=n_k, launches=run["launches"])
+    return out
 
 
 def peak_mib(torch, fn) -> float:
@@ -1065,9 +1114,10 @@ def phase_lights(torch, dev) -> int:
           f"{tuple(sc.env_luminance.shape)}, built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     cfg, scfg = bench_scene.lights_config("image")
-    ref, n = lights_wave(torch, "17.1 lights, image env, light BVH", sc, dbvh, cam, cfg, scfg,
-                         dev)
-    total += n
+    label = "17.1 lights, image env, light BVH"
+    w = scene_waves(torch, 17, {label: (sc, dbvh)}, cam, cfg, scfg, dev)[label]
+    ref = w["xyz"]
+    total += w["launches"]
 
     for backend in ("cuda_binary", "cuda_binary_deep", "cuda_bvh8"):
         isect = dispatch.make_intersectors(sc, dbvh, dev, backend=backend)
@@ -1088,13 +1138,14 @@ def phase_lights(torch, dev) -> int:
     vcfg, vscfg = bench_scene.lights_config("image", kind="volpath")
     check(hasattr(integrator.make_wave_fn(sc, dbvh, cam, vscfg, vcfg, device=dev), "phases"),
           "17.4: make_wave_fn did not take the phased wave")
-    total += lights_wave(torch, "17.4 lights, image env, VolPath (phased wave)", sc, dbvh, cam,
-                         vcfg, vscfg, dev)[1]
+    label = "17.4 lights, image env, VolPath (phased wave)"
+    total += scene_waves(torch, 17, {label: (sc, dbvh)}, cam, vcfg, vscfg, dev)[label]["launches"]
 
     psc, pdbvh, pcam = bench_scene.build_lights_scene("portal")
     pcfg, pscfg = bench_scene.lights_config("portal")
-    total += lights_wave(torch, "17.3 lights, portal env, exhaustive sampler", psc, pdbvh, pcam,
-                         pcfg, pscfg, dev)[1]
+    label = "17.3 lights, portal env, exhaustive sampler"
+    total += scene_waves(torch, 17, {label: (psc, pdbvh)}, pcam, pcfg, pscfg,
+                         dev)[label]["launches"]
 
     # the two lane-by-table tensors of this slice alone, at a wave's width:
     # the env map's conditional rows and the exhaustive importance matrix
@@ -1120,8 +1171,9 @@ def phase_lights(torch, dev) -> int:
     msc, mdbvh, mcam = bench_scene.build_motion_scene()
     check(msc.tri_p_end is not None and mcam.motion_keys is not None, "17.5: nothing moves")
     mcfg, mscfg = bench_scene.bench_config()
-    total += lights_wave(torch, "17.5 motion scene (Sobol)", msc, mdbvh, mcam, mcfg, mscfg, dev,
-                         check_batches=True)[1]
+    label = "17.5 motion scene (Sobol)"
+    total += scene_waves(torch, 17, {label: (msc, mdbvh)}, mcam, mcfg, mscfg, dev,
+                         check_batches=True)[label]["launches"]
 
     R = 65536
     gen = torch.Generator().manual_seed(17)
@@ -1348,6 +1400,106 @@ def phase_learner(torch, sc, dbvh, cam, dev, ref_film) -> int:
     return launches + counts["bvh4_traverse"]
 
 
+def untextured(sc):
+    """The parsed scene without its textures: base colors from the material
+    rows, mix amounts 0.5, the 1-texel placeholder atlas (what a scene with
+    no texture carries)."""
+    import numpy as np
+    from nn_bvh_tpu_torch.geometry import scene as scene_mod
+
+    params = np.array(sc.mat_params, copy=True)
+    params[:, 5] = -1.0
+    mix = (np.asarray(sc.mat_type) == scene_mod.MAT_MIX) & (params[:, 8] < 0)
+    params[mix, 8] = 0.5
+    return sc.replace(mat_params=params, tex_atlas=np.zeros((1, 4), np.float32),
+                      tex_desc=np.zeros((1, 1, 3), np.int32))
+
+
+def phase_scene_input(torch, dev) -> int:
+    """Phase 19 (see the module doc) -> bvh4_traverse launches of its main
+    path (the CLI render and the timed waves)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    from nn_bvh_tpu_torch import accel, native
+    from nn_bvh_tpu_torch.cli import render
+    from nn_bvh_tpu_torch.core import samplers
+    from nn_bvh_tpu_torch.geometry import pbrt_parser
+    from nn_bvh_tpu_torch.tools import bench_scene
+    from nn_bvh_tpu_torch.utils import image
+    from nn_bvh_tpu_torch.wavefront import camera as camera_mod, integrator
+
+    t0 = time.perf_counter()
+    total = 0
+    with tempfile.TemporaryDirectory() as d:
+        paths = bench_scene.write_pbrt_bench(d)
+        print(f"phase 19: wrote the pbrt bench scene (three binary plymesh files, a "
+              f"{bench_scene.PBRT_TEX}^2 PNG, a 128^2 equal-area EXR) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out = os.path.join(d, "out.exr")
+        buf = io.StringIO()
+        reset_counts()
+        torch.cuda.synchronize()
+        with contextlib.redirect_stdout(buf):
+            img = render.main([paths["bench"], "--outfile", out, "--stats"])
+        counts = launch_counts()
+        stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+        cli_launches = counts.get("bvh4_traverse", 0)
+        check(set(counts) == {"bvh4_traverse"} and cli_launches > 0,
+              f"19.1: launches {counts}")
+        check(native.available(), "19.1: the native BVH builder was not used")
+        check(np.array_equal(image.read_exr(out), img), "19.1: out.exr differs from the image")
+        check(bool(np.isfinite(img).all()) and img.mean() > 0, f"19.1: image mean {img.mean()}")
+        total += cli_launches
+        print(f"phase 19.1: cli.render {paths['bench']} on the card: parse {stats['parse_s']} s, "
+              f"atlas pack {stats['atlas_pack_s']} s ({stats['atlas_mib']} MiB), scene build "
+              f"{stats['compile_s']} s, BVH build (native) {stats['bvh_s']} s, render "
+              f"{stats['render_s']} s for {stats['spp']} spp ({stats['rays_per_s']} rays/s, "
+              f"R*(2*depth+1)*spp/s), peak memory {stats.get('peak_mem_mib')} MiB; "
+              f"{stats['tris']} triangles, {stats['lights']} lights; {cli_launches} "
+              f"bvh4_traverse launches; out.exr read back bit-equal; image mean "
+              f"{img.mean():.6f}", flush=True)
+
+        res = pbrt_parser.parse_file(paths["bench"])
+        sc, dbvh, _ = accel.build_scene_bvh(res.builder.build())
+        cam = camera_mod.make_perspective(res.cam_to_world, res.fov, res.width, res.height)
+        cfg = integrator.IntegratorConfig(max_depth=res.max_depth, mis=True, rr_depth=2)
+        scfg = samplers.make_sampler("sobol", seed=0, spp=res.spp)
+        rs = np.random.RandomState(19)
+        res.builder.add_projection_light((0, 7, -4), (0, -1, 0.55),
+                                         rs.rand(256, 256, 3).astype(np.float32),
+                                         scale=40.0, fov=40.0)
+        res.builder.add_goniometric_light((3, 4, -3), (rs.rand(128, 128, 3) + 0.2)
+                                          .astype(np.float32), scale=15.0)
+        sc_l, dbvh_l, _ = accel.build_scene_bvh(res.builder.build())
+        labels = ("19.2 textured", "19.2 untextured", "19.3 textured + two textured lights")
+        waves = scene_waves(torch, 19, dict(zip(labels, ((sc, dbvh), (untextured(sc), dbvh),
+                                                         (sc_l, dbvh_l)))), cam, cfg, scfg,
+                            dev, rounds=5)
+        total += sum(w["launches"] for w in waves.values())
+        (ms_t, k_t), (ms_u, k_u), (ms_l, k_l) = ((waves[k]["ms"], waves[k]["kernels"])
+                                                 for k in labels)
+        diff = lambda a, b: a - b if a and b else "not measured"
+        print(f"phase 19.2: texturing costs {ms_t - ms_u:.2f} ms a wave ({ms_t / ms_u:.3f}x) "
+              f"and {diff(k_t, k_u)} CUDA kernels a wave; phase 19.3: the two textured "
+              f"lights {ms_l - ms_t:.2f} ms and {diff(k_l, k_t)} kernels", flush=True)
+
+        t1 = time.perf_counter()
+        sc_c, dbvh_c, cam_c, res_c = pbrt_parser.load_scene(paths["cloud"])
+        check(sc_c.n_media == 1 and int(sc_c.med_grid_id[0]) == 0, "19.4: no cloud grid")
+        cfg_c = integrator.IntegratorConfig(kind="volpath", max_depth=res_c.max_depth, rr_depth=2)
+        print(f"phase 19.4: parsed the cloud scene in {time.perf_counter() - t1:.1f} s", flush=True)
+        label = "19.4 cloud medium, VolPath (the phased wave), one wave"
+        total += scene_waves(torch, 19, {label: (sc_c, dbvh_c)}, cam_c, cfg_c,
+                             samplers.make_sampler("sobol", seed=0, spp=16), dev, rounds=1,
+                             profile=False)[label]["launches"]
+    print(f"phase 19: done in {time.perf_counter() - t0:.0f} s", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1435,6 +1587,7 @@ def main() -> int:
     phase_materials(torch, dev)
     out[0]["launches"] += phase_lights(torch, dev)
     out[0]["launches"] += phase_learner(torch, sc, dbvh, cam, dev, ref_film)
+    out[0]["launches"] += phase_scene_input(torch, dev)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,8 @@ Conventions of the port:
   sits on the render path. The learner's initial weights come from a
   `torch.Generator` seeded from `--seed`; no global RNG is used.
 - Hand-written CUDA kernels live in `csrc/` and are built at first use by
-  `kernels.load` into `build/kernels/` at the repository root.
+  `kernels.load` into `build/kernels/` at the repository root; the native
+  BVH builder is built by g++ into `build/native/`.
 
 What is ported is the bench path: the Path integrator (MIS + RR) over
 every material of the JAX package (with its subsurface stage) and area
@@ -31,8 +32,11 @@ of the JAX package (BVH4, binary, deep-stack binary, BVH8) as a CUDA kernel,
 VolPath over homogeneous and grid media (`wavefront/volpath.py`, with the
 phased wave), gradients of shading with respect to material and light
 parameters by autograd, the traversal profiler (`tools/trav_prof.py`),
-and the treeNet split learner with the joint render+train step (`learn/`,
+the treeNet split learner with the joint render+train step (`learn/`,
 its CLIs `cli/train.py` and `cli/tree_bench.py`; randomness there comes
-from a torch.Generator seeded by the caller). Anything else raises
+from a torch.Generator seeded by the caller), textures (`geometry/
+texture.py`), and scene input: the pbrt parser with PLY, Loop subdivision
+and curves, the native SAH builder (`native/`), image I/O (`utils/`) and
+the render CLI (`cli/render.py`). Anything else raises
 NotImplementedError naming the ROADMAP item that ports it.
 """

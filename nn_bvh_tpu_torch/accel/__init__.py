@@ -1,27 +1,37 @@
 """Acceleration structures: host build + device traversal (port of the host
-part of nn_bvh_tpu/accel/__init__.py:14-97)."""
+part of nn_bvh_tpu/accel/__init__.py)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from .build import BVH, build_sah, triangle_bounds
+from . import build as _build
+from .build import BVH, build_median, build_sah, sah_cost, triangle_bounds
 from .traverse import DeviceBVH, Hit
 
 
 def build_scene_bvh(scene, method: str = "sah"):
-    """Binned-SAH BVH over a host CompiledScene, triangles reordered so every
-    leaf is a contiguous range -> (scene_reordered, DeviceBVH, BVH). An
-    animated scene gets one tree over the union of both shutter keyframes'
-    triangle bounds, conservative at every shutter time."""
-    if method not in ("sah", "sah_numpy"):
-        raise NotImplementedError(f"BVH builder {method!r} is not ported yet")
+    """BVH over a host CompiledScene, triangles reordered so every leaf is a
+    contiguous range -> (scene_reordered, DeviceBVH, BVH). method: "sah" or
+    "sah_native" (the native C++ binned SAH, the numpy one without a
+    toolchain), "sah_numpy", "median" or "lbvh" (both the Morton median
+    split, as in the JAX package). An animated scene gets one tree over the
+    union of both shutter keyframes' triangle bounds, conservative at every
+    shutter time."""
+    builders = {"sah_numpy": build_sah, "median": build_median, "lbvh": build_median}
+    if method not in builders and method not in ("sah", "sah_native"):
+        raise ValueError(f"unknown BVH builder {method!r}")
     n = scene.n_tris
     lo, hi = triangle_bounds(np.asarray(scene.tri_p)[:n])
     if scene.tri_p_end is not None:
         lo2, hi2 = triangle_bounds(np.asarray(scene.tri_p_end)[:n])
         lo, hi = np.minimum(lo, lo2), np.maximum(hi, hi2)
-    return apply_bvh_to_scene(scene, build_sah(lo, hi))
+    if method in builders:
+        return apply_bvh_to_scene(scene, builders[method](lo, hi))
+    from .. import native
+
+    bvh = native.build_sah_native(lo, hi, max_leaf=_build.MAX_LEAF_PRIMS)
+    return apply_bvh_to_scene(scene, bvh if bvh is not None else build_sah(lo, hi))
 
 
 def apply_bvh_to_scene(scene, bvh: BVH):

@@ -1,5 +1,5 @@
-"""sRGB matrices and sensor white balance (port of the parts of
-nn_bvh_tpu/core/colorspace.py the bench path uses). The matrices are
+"""sRGB matrices, sensor white balance and the sRGB gamma (port of the
+parts of nn_bvh_tpu/core/colorspace.py the port uses). The matrices are
 host numpy, computed exactly as in the JAX package."""
 
 from __future__ import annotations
@@ -69,3 +69,11 @@ def apply_matrix(m: np.ndarray, v: torch.Tensor) -> torch.Tensor:
 def xyz_to_linear_srgb(xyz: torch.Tensor) -> torch.Tensor:
     """White-balanced sensor XYZ -> linear sRGB."""
     return apply_matrix(SENSOR_XYZ_TO_SRGB, xyz)
+
+
+def srgb_encode(rgb: torch.Tensor) -> torch.Tensor:
+    """Linear -> sRGB gamma, clipped to [0, 1]."""
+    rgb = torch.clamp(rgb, 0.0, 1.0)
+    return torch.where(rgb <= 0.0031308, 12.92 * rgb,
+                       1.055 * torch.pow(rgb, 1.0 / 2.4) - 0.055)
+

@@ -8,20 +8,21 @@ parameter columns, same fused `tri_shade` record, same placeholder tables).
 carries a JAX-built scene and BVH across as numpy arrays, so tests render the
 very same tables in both packages.
 
-In this slice: every material of the JAX package (diffuse, conductor,
+Every feature of the JAX builder: every material (diffuse, conductor,
 dielectric, thin dielectric, diffuse transmission, coated diffuse, coated
-conductor, mix, hair, measured, subsurface; named-spectrum eta and k),
-point, distant, spot, uniform-infinite, image-infinite (equal-area env map)
-and portal env lights, per-triangle and analytic sphere area lights,
-analytic quadrics and bilinear patches, object motion blur (shutter-end
-vertex tables), and homogeneous and grid participating media with their
-medium interfaces. Textures and the two lights that read the texture atlas
-(projection, goniometric) raise NotImplementedError naming their ROADMAP
-item.
+conductor, mix, hair, measured, subsurface; named-spectrum eta and k), with
+image, checkerboard and procedural textures packed into one mip atlas
+(geometry/texture.py) for reflectance and mix amounts; point, distant,
+spot, projection, goniometric, uniform-infinite, image-infinite (equal-area
+env map) and portal env lights, per-triangle and analytic sphere area
+lights; analytic quadrics and bilinear patches; object motion blur
+(shutter-end vertex tables); homogeneous and grid participating media (the
+cloud, rgbgrid and nanovdb kinds are grids) with their medium interfaces.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -61,7 +62,11 @@ LIGHT_SPHERE_AREA = 9
 #   SPOT:        [0:3] direction [3] cos_total_width [4] cos_falloff_start
 #   SPHERE_AREA: [0] radius [1] two_sided [2] inscribed tessellation radius
 #   PORTAL_ENV:  [0:12] portal corners p0 p1 p2 p3
-# media (same values as the JAX package; cloud grids come with the parser)
+# light_params by tag, continued:
+#   PROJECTION:  [0:3] direction [3] tan_half_x [4] tan_half_y [5] tex_id [6:9] up
+#   GONIOMETRIC: [5] tex_id (equal-area octahedral intensity map)
+TEX_RES = 256  # bake resolution of analytic (checker, procedural) textures
+# media (same values as the JAX package; cloud, rgbgrid and nanovdb are grids)
 MED_HOMOGENEOUS = 0
 MED_GRID = 1
 MED_GRID_RES = 64  # density grids resampled to a fixed-size stack
@@ -72,12 +77,11 @@ N_MAT_PARAMS = 12   # [rough_u, rough_v, eta, k, transmittance, texture, mix_a,
 N_LIGHT_PARAMS = 12
 
 SLICE_MATERIALS = tuple(range(MAT_SUBSURFACE + 1))
-SLICE_LIGHTS = tuple(t for t in range(LIGHT_SPHERE_AREA + 1)
-                     if t not in (LIGHT_PROJECTION, LIGHT_GONIOMETRIC))
+SLICE_LIGHTS = tuple(range(LIGHT_SPHERE_AREA + 1))
 
 _INT_FIELDS = ("tri_mat", "tri_light", "mat_type", "light_type", "med_type",
                "med_grid_id", "med_temp_grid_id", "tri_med_inside", "tri_med_outside",
-               "quad_type", "quad_mat", "quad_light", "quad_med")
+               "quad_type", "quad_mat", "quad_light", "quad_med", "tex_desc")
 _STATIC_INTS = ("n_tris", "n_lights", "n_media", "camera_medium", "n_quadrics")
 # static feature gates (the JAX names): which optional lobes, stages and
 # light branches a wave computes at all
@@ -109,6 +113,11 @@ class CompiledScene(NamedTuple):
     bounds: object       # (2, 3) f32
     tri_shade: object    # (N, 28) f32 fused shading record: v0 v1 v2 | n0 n1 n2
     #   | uv0 uv1 uv2 | mat_id | light_id | med_inside | med_outside
+    # textures (geometry/texture.py): every mip level of every texture as
+    # per-texel sigmoid-poly coefficients [c0, c1, c2, scale] in one flat
+    # atlas; the 1-texel placeholder means none
+    tex_atlas: object = None        # (Ntexels, 4)
+    tex_desc: object = None         # (T, LMAX, 3) i32 [offset, width, height]
     # participating media (fused per lane by scatter.media.medium_records)
     med_type: object = None         # (K,) i32
     med_sa_coeffs: object = None    # (K, 3) sigma_a sigmoid-poly chroma
@@ -262,27 +271,14 @@ def to_device(scene: CompiledScene, device) -> CompiledScene:
 
 
 def check_slice(fields: dict) -> None:
-    """Raise NotImplementedError for scene features this slice cannot render
-    (keys and values as in the JAX CompiledScene)."""
-    def has(name):
-        v = fields.get(name)
-        return v is not None and np.asarray(v).size > 0
-
-    mat_type = host(fields["mat_type"])
-    bad_mats = set(np.unique(mat_type).tolist()) - set(SLICE_MATERIALS)
+    """Raise NotImplementedError for material or light tags the port does
+    not know (keys and values as in the JAX CompiledScene)."""
+    bad_mats = set(np.unique(host(fields["mat_type"])).tolist()) - set(SLICE_MATERIALS)
     if bad_mats:
         raise NotImplementedError(f"material tags {sorted(bad_mats)} are unknown")
-    if (host(fields["mat_params"])[mat_type == MAT_MIX, 8] < 0).any():
-        raise NotImplementedError("texture-driven mix amounts are not ported yet "
-                                  "(ROADMAP queue 1, item 3: textures)")
     bad_lights = set(np.unique(host(fields["light_type"])).tolist()) - set(SLICE_LIGHTS)
     if bad_lights:
-        raise NotImplementedError(
-            f"light tags {sorted(bad_lights)} are not ported yet: projection and "
-            "goniometric lights read the texture atlas (ROADMAP queue 1, item 3: textures)")
-    if has("tex_atlas") and np.asarray(fields["tex_atlas"]).size > 4:
-        raise NotImplementedError("textures are not ported yet "
-                                  "(ROADMAP queue 1, item 3)")
+        raise NotImplementedError(f"light tags {sorted(bad_lights)} are unknown")
 
 
 def scene_from_numpy(fields: dict, bvh_fields: dict, device):
@@ -321,6 +317,35 @@ class SceneBuilder:
         self._tri_pe, self._tri_ne = [], []  # shutter-end vertices/normals or None
         self._quadrics = []
         self._env_image = None   # (He, We, 3) equal-area RGB
+        self._textures = []      # native-resolution (H, W, 3) RGB images
+        self.atlas_seconds = 0.0  # host time of the last build's atlas packing
+
+    def add_texture_image(self, rgb_image) -> int:
+        """An RGB image texture at its native resolution (its mip pyramid is
+        built by `build`) -> its id for add_material(texture=)."""
+        self._textures.append(np.asarray(rgb_image, np.float32))
+        return len(self._textures) - 1
+
+    def add_texture_checker(self, rgb1=(0.1, 0.1, 0.1), rgb2=(0.9, 0.9, 0.9),
+                            uscale: float = 8.0) -> int:
+        """A checkerboard of uscale squares per uv unit, baked at TEX_RES."""
+        t = (np.arange(TEX_RES) * uscale / TEX_RES).astype(np.int64)
+        par = (t[:, None] + t[None, :]) % 2
+        img = np.where(par[..., None] > 0, np.asarray(rgb2, np.float32),
+                       np.asarray(rgb1, np.float32))
+        self._textures.append(img.astype(np.float32))
+        return len(self._textures) - 1
+
+    def add_texture_procedural(self, kind: str, scale: float = 8.0, octaves: int = 6,
+                               omega: float = 0.5, seed: int = 0,
+                               rgb1=(0.12, 0.1, 0.08), rgb2=(0.9, 0.88, 0.82)) -> int:
+        """A procedural texture (fbm, wrinkled, windy, marble, dots) baked over
+        uv space at TEX_RES (utils/noise.bake)."""
+        from ..utils import noise
+
+        self._textures.append(noise.bake(kind, res=TEX_RES, scale=scale, octaves=octaves,
+                                         omega=omega, seed=seed, rgb1=rgb1, rgb2=rgb2))
+        return len(self._textures) - 1
 
     def add_material(self, kind: str = "diffuse", reflectance=(0.5, 0.5, 0.5),
                      roughness: float = 0.0, eta: float | None = None, k: float = 3.9,
@@ -333,7 +358,9 @@ class SceneBuilder:
         """A material row, as the JAX builder writes it. coateddiffuse and
         coatedconductor put a dielectric coat (eta, coat_roughness) over the
         base lobe; mix picks mix_materials[1] with probability mix_amount per
-        hit, else mix_materials[0]; hair takes roughness as beta_m and
+        hit, else mix_materials[0] (an amount below 0 is -(texture id + 1):
+        the texture's value at the hit); `texture` (an add_texture_* id)
+        gives the base color per hit; hair takes roughness as beta_m and
         beta_n (default beta_m), its reflectance sets sigma_a; measured
         names an add_measured_brdf table; subsurface takes sigma_a,
         sigma_s (RGB, times sss_scale), g and eta. eta=None is 1.33 for
@@ -348,9 +375,6 @@ class SceneBuilder:
                  "coatedconductor": MAT_COATED_CONDUCTOR, "mix": MAT_MIX,
                  "hair": MAT_HAIR, "measured": MAT_MEASURED,
                  "subsurface": MAT_SUBSURFACE}
-        if texture >= 0:
-            raise NotImplementedError("textures are not ported yet "
-                                      "(ROADMAP queue 1, item 3: textures)")
         if eta is None:
             eta = 1.33 if kind == "subsurface" else 1.5
         if kind == "subsurface":
@@ -456,13 +480,28 @@ class SceneBuilder:
         params[4] = np.cos(np.deg2rad(max(cone_angle - cone_delta, 0.0)))
         return self._add_light(LIGHT_SPOT, position, intensity_rgb, scale, params)
 
-    def add_projection_light(self, *args, **kw) -> int:
-        raise NotImplementedError("projection lights read the texture atlas "
-                                  "(ROADMAP queue 1, item 3: textures)")
+    def add_projection_light(self, position, direction, image, scale: float = 1.0,
+                             fov: float = 45.0, up=(0, 1, 0)) -> int:
+        """A slide projector: `image` (an RGB texture) over a square frustum
+        of `fov` degrees about `direction`."""
+        d = np.asarray(direction, np.float64)
+        d = (d / np.linalg.norm(d)).astype(np.float32)
+        params = np.zeros(N_LIGHT_PARAMS, np.float32)
+        params[0:3] = d
+        params[3] = params[4] = np.tan(np.deg2rad(fov) / 2)
+        params[5] = self.add_texture_image(image)
+        u = np.asarray(up, np.float64)
+        u = u - d * np.dot(u, d)
+        params[6:9] = (u / max(np.linalg.norm(u), 1e-9)).astype(np.float32)
+        return self._add_light(LIGHT_PROJECTION, position, np.ones(3), scale, params)
 
-    def add_goniometric_light(self, *args, **kw) -> int:
-        raise NotImplementedError("goniometric lights read the texture atlas "
-                                  "(ROADMAP queue 1, item 3: textures)")
+    def add_goniometric_light(self, position, intensity_map, intensity_rgb=(1, 1, 1),
+                              scale: float = 1.0) -> int:
+        """A point light whose intensity over directions is `intensity_map`,
+        an equal-area octahedral RGB image."""
+        params = np.zeros(N_LIGHT_PARAMS, np.float32)
+        params[5] = self.add_texture_image(intensity_map)
+        return self._add_light(LIGHT_GONIOMETRIC, position, intensity_rgb, scale, params)
 
     def set_environment_map(self, equal_area_rgb, scale: float = 1.0) -> int:
         """An image infinite light: an equal-area octahedral radiance map."""
@@ -528,15 +567,15 @@ class SceneBuilder:
                    temperature_offset: float = 0.0) -> int:
         """A participating medium, as the JAX builder registers it:
         homogeneous, or a grid of `density` ((D, H, W), resampled to
-        MED_GRID_RES^3) over the world box `bounds` ((2, 3)). sigma_a and
+        MED_GRID_RES^3) over the world box `bounds` ((2, 3)); the kinds
+        cloud, rgbgrid and nanovdb are grids too, their densities made on
+        the host (the parser bakes a cloud's noise). sigma_a and
         sigma_s are RGB chromas times `scale`; the emission Le * Le_scale is
         multiplied by sigma_a where it is sampled. A `temperature` grid
         (Kelvin, scale and offset applied here) makes the emission blackbody
         radiance at the local temperature times Le_scale."""
-        kinds = {"homogeneous": MED_HOMOGENEOUS, "grid": MED_GRID}
-        if kind not in kinds:
-            raise NotImplementedError(f"medium {kind!r} is not ported yet "
-                                      "(ROADMAP queue 1, item 4: it comes with the parser)")
+        kinds = {"homogeneous": MED_HOMOGENEOUS, "grid": MED_GRID,
+                 "rgbgrid": MED_GRID, "cloud": MED_GRID, "nanovdb": MED_GRID}
         if kinds[kind] == MED_GRID:
             if density is None or bounds is None:
                 raise ValueError("grid medium needs density + bounds")
@@ -736,6 +775,16 @@ class SceneBuilder:
             measured_coeffs = np.zeros((1, 2, 2, 2, 4), np.float32)
             measured_alpha = np.ones((1,), np.float32)
 
+        if self._textures:
+            from . import texture
+
+            t0 = time.perf_counter()
+            tex_atlas, tex_desc = texture.pack_atlas(self._textures)
+            self.atlas_seconds = time.perf_counter() - t0
+        else:
+            tex_atlas = np.zeros((1, 4), np.float32)
+            tex_desc = np.zeros((1, 1, 3), np.int32)
+
         lo = tri_p[:n].reshape(-1, 3).min(0)
         hi = tri_p[:n].reshape(-1, 3).max(0)
         quads = dict(n_quadrics=0)
@@ -773,7 +822,8 @@ class SceneBuilder:
             mat_params=mat_params,
             light_type=light_type, light_pos=light_pos, light_coeffs=lc,
             light_scale=light_scale, light_params=light_params,
-            n_lights=int(len(lights)), bounds=np.stack([lo, hi]), tri_shade=None)
+            n_lights=int(len(lights)), bounds=np.stack([lo, hi]), tri_shade=None,
+            tex_atlas=tex_atlas, tex_desc=tex_desc)
         if animated:
             out = out.replace(tri_p_end=tri_p_end, tri_n_end=tri_n_end)
         out = out.replace(tri_shade=make_tri_shade(out))

@@ -1,6 +1,6 @@
 """4x4 host transforms (numpy copy of the parts of
-nn_bvh_tpu/geometry/transform.py the port uses: look_at, translate and
-applying a transform to points and normals)."""
+nn_bvh_tpu/geometry/transform.py the port uses: look_at, translate, scale,
+rotate, and applying a transform to points, vectors and normals)."""
 
 from __future__ import annotations
 
@@ -34,10 +34,36 @@ def translate(delta) -> np.ndarray:
     return m
 
 
+def scale(s) -> np.ndarray:
+    s = np.broadcast_to(np.asarray(s, np.float32), (3,))
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[1, 1], m[2, 2] = s
+    return m
+
+
+def rotate(angle_deg: float, axis) -> np.ndarray:
+    """Rotation by angle_deg about axis (Rodrigues, in float64)."""
+    a = np.asarray(axis, np.float64)
+    x, y, z = a / np.linalg.norm(a)
+    th = np.deg2rad(angle_deg)
+    c, s = np.cos(th), np.sin(th)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = [
+        [c + x * x * (1 - c), x * y * (1 - c) - z * s, x * z * (1 - c) + y * s],
+        [y * x * (1 - c) + z * s, c + y * y * (1 - c), y * z * (1 - c) - x * s],
+        [z * x * (1 - c) - y * s, z * y * (1 - c) + x * s, c + z * z * (1 - c)],
+    ]
+    return m
+
+
 def apply_points(m: np.ndarray, p: np.ndarray) -> np.ndarray:
     """(4,4) transform of (..., 3) points."""
     p = np.asarray(p, np.float32)
     return (p @ m[:3, :3].T + m[:3, 3]).astype(np.float32)
+
+
+def apply_vectors(m: np.ndarray, v: np.ndarray) -> np.ndarray:
+    return (np.asarray(v, np.float32) @ m[:3, :3].T).astype(np.float32)
 
 
 def apply_normals(m: np.ndarray, n: np.ndarray) -> np.ndarray:

@@ -8,7 +8,9 @@ effectively smooth; scalar or per-wavelength complex Fresnel), dielectric
 (smooth and rough), thin dielectric, diffuse transmission, coated diffuse
 and coated conductor (the stochastic walk of scatter/layered.py), hair
 (scatter/hair.py), measured (scatter/measured.py) and the subsurface exit
-lobe. Mix materials are resolved per lane in `gather_material`.
+lobe. Mix materials are resolved per lane in `gather_material`, which also
+reads textured base colors and texture-driven mix amounts from the atlas
+(geometry/texture.py) in scenes that hold them.
 
 A lobe is computed only when the scene has its material: `MaterialCtx.kinds`
 holds the scene's material tags (`scene_kinds`, read once a wave), and the
@@ -33,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import vecmath as vm, sampling, rgb2spec, spectrum
-from ..geometry import scene as scene_mod
+from ..geometry import scene as scene_mod, texture
 
 INV_PI = sampling.INV_PI
 
@@ -202,13 +204,27 @@ def material_records(scene) -> torch.Tensor:
                       scene.mat_scale[:, None], scene.mat_params], -1)
 
 
+# markers scene_kinds adds beside the material tags: the texture lookups a
+# wave of the scene makes
+TEXTURED = "textured"        # a material reads its base color from the atlas
+MIX_TEXTURE = "mix_texture"  # a mix reads its amount from the atlas
+
+
 def scene_kinds(scene) -> frozenset:
     """The material tags a wave of `scene` shades (one host read of
-    mat_type): those of its materials, and with subsurface the exit lobe
-    and the mirror its lanes become."""
-    kinds = set(scene_mod.host(scene.mat_type).tolist())
+    mat_type, and of mat_params when the scene has textures): those of its
+    materials, with subsurface the exit lobe and the mirror its lanes
+    become, and the markers TEXTURED and MIX_TEXTURE."""
+    mat_type = scene_mod.host(scene.mat_type)
+    kinds = set(mat_type.tolist())
     if scene_mod.MAT_SUBSURFACE in kinds:
         kinds |= {scene_mod.MAT_SSS_EXIT, scene_mod.MAT_CONDUCTOR}
+    if texture.has_textures(scene):
+        params = scene_mod.host(scene.mat_params)
+        if (params[:, 5] >= 0).any():
+            kinds.add(TEXTURED)
+        if ((mat_type == scene_mod.MAT_MIX) & (params[:, 8] < 0)).any():
+            kinds.add(MIX_TEXTURE)
     return frozenset(kinds)
 
 
@@ -247,10 +263,13 @@ def gather_material(scene, mat_id, lam, mat_all=None, uv=None, u_mix=None,
     """Per-lane material parameters with the base color expanded at the
     sampled wavelengths (one gather). A mix material is resolved here, as
     the wavefront reference resolves it before shading: u_mix < amount picks
-    mix_materials[1], else [0]. Hair takes its fiber offset from uv's v.
-    Textures are not in this slice (the scene check refuses them), so
-    foot_log2 has no effect yet (ROADMAP queue 1, item 3). `kinds`: the
-    scene's tags (scene_kinds), read from the scene when not given."""
+    mix_materials[1], else [0]; an amount below 0 is -(texture id + 1), the
+    texture's value at 550 nm there. A material with a texture id
+    (mat_params[5]) takes its base color from the atlas. Both lookups are
+    trilinear at the footprint foot_log2 (level 0 without it), and are made
+    only when `kinds` holds their marker (MIX_TEXTURE, TEXTURED). Hair takes
+    its fiber offset from uv's v. `kinds`: the scene's tags (scene_kinds),
+    read from the scene when not given."""
     if mat_all is None:
         mat_all = material_records(scene)
     if kinds is None:
@@ -258,11 +277,26 @@ def gather_material(scene, mat_id, lam, mat_all=None, uv=None, u_mix=None,
     rec = mat_all[torch.clamp(mat_id, min=0).long()]
     if has_mix(scene) and u_mix is not None:
         is_mix = rec[..., 0].to(torch.int32) == scene_mod.MAT_MIX
-        resolved = torch.where(is_mix, torch.where(u_mix < rec[..., 13],
+        amount = rec[..., 13]
+        if MIX_TEXTURE in kinds and uv is not None:
+            texel = texture.lookup(scene.tex_atlas, scene.tex_desc,
+                                   (-amount - 1.0).to(torch.int32), uv, foot_log2=foot_log2)
+            lam550 = torch.full_like(uv[..., :1], 550.0)
+            tval = torch.clamp(rgb2spec.eval_sigmoid_poly(texel[..., 0:3], lam550)[..., 0]
+                               * texel[..., 3], 0.0, 1.0)
+            amount = torch.where(amount < 0, tval, amount)
+        resolved = torch.where(is_mix, torch.where(u_mix < amount,
                                                    rec[..., 12].to(torch.int32),
                                                    rec[..., 11].to(torch.int32)), mat_id)
         rec = torch.where(is_mix[..., None], mat_all[torch.clamp(resolved, min=0).long()], rec)
-    refl = rgb2spec.eval_sigmoid_poly(rec[..., 1:4], lam) * rec[..., 4:5]
+    coeffs, scale = rec[..., 1:4], rec[..., 4:5]
+    if TEXTURED in kinds and uv is not None:
+        tex_id = rec[..., 10].to(torch.int32)
+        texel = texture.lookup(scene.tex_atlas, scene.tex_desc, tex_id, uv, foot_log2=foot_log2)
+        use = (tex_id >= 0)[..., None]
+        coeffs = torch.where(use, texel[..., 0:3], coeffs)
+        scale = torch.where(use, texel[..., 3:4], scale)
+    refl = rgb2spec.eval_sigmoid_poly(coeffs, lam) * scale
     mat_type = rec[..., 0].to(torch.int32)
     ax = roughness_to_alpha(rec[..., 5])
     ay = roughness_to_alpha(rec[..., 6])

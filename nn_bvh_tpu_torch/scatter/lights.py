@@ -1,6 +1,5 @@
 """Light sampling over the fused light table (port of
-nn_bvh_tpu/scatter/lights.py; the projection and goniometric lights read
-the texture atlas and wait for ROADMAP queue 1, item 3).
+nn_bvh_tpu/scatter/lights.py).
 
 The (L, 20) light record: [0 type | 1:4 pos | 4:7 coeffs | 7 scale |
 8:20 params], built from the scene tensors so autograd can reach
@@ -9,6 +8,10 @@ tag the scene holds (`scene_tags`, one host read a wave) and picks one per
 lane, as the JAX package's select does over every tag:
 
 - point and spot (smoothstep falloff) lights, distant lights;
+- projection lights (an image over a square frustum) and goniometric
+  lights (an equal-area intensity map over directions): point lights
+  scaled by one texture lookup each, computed only when the scene holds
+  that tag;
 - uniform infinite lights and the equal-area env map (importance sampled
   through its marginal and conditional cdfs);
 - the portal env light: the env map restricted to a quad, sampled through
@@ -28,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import vecmath as vm, sampling, spectrum, rgb2spec
-from ..geometry import scene as scene_mod, triangle
+from ..geometry import scene as scene_mod, texture, triangle
 
 DELTA_TAGS = (scene_mod.LIGHT_POINT, scene_mod.LIGHT_DISTANT, scene_mod.LIGHT_SPOT,
               scene_mod.LIGHT_PROJECTION, scene_mod.LIGHT_GONIOMETRIC)
@@ -188,6 +191,31 @@ def _sample_sphere(rec, p, u2, emit):
             torch.where(outside, pdf_out, pdf_in), li)
 
 
+def _textured_point(scene, tag, rec, wi_point, li_point, lam):
+    """A projection or goniometric light's radiance: the point light's times
+    its texture's spectrum toward p (li_point itself without an atlas)."""
+    if not texture.has_textures(scene):
+        return li_point
+    tex_id = rec[..., 13].to(torch.int32)
+    if tag == scene_mod.LIGHT_PROJECTION:
+        pdir, up = rec[..., 8:11], rec[..., 14:17]
+        tanx = torch.clamp(rec[..., 11], min=1e-6)
+        tany = torch.clamp(rec[..., 12], min=1e-6)
+        xax = vm.normalize(vm.cross(up, pdir))
+        w_l = -wi_point  # light -> p
+        wz, wx, wy = vm.dot(w_l, pdir), vm.dot(w_l, xax), vm.dot(w_l, up)
+        wzc = torch.clamp(wz, min=1e-6)
+        inside = (wz > 1e-6) & (torch.abs(wx / wzc) <= tanx) & (torch.abs(wy / wzc) <= tany)
+        uv = torch.stack([0.5 * (wx / wzc / tanx + 1.0), 0.5 * (wy / wzc / tany + 1.0)], -1)
+    else:
+        uv = vm.equal_area_sphere_to_square(-wi_point)
+    texel = texture.lookup(scene.tex_atlas, scene.tex_desc, tex_id, torch.clamp(uv, 0.0, 0.9999))
+    li = li_point * (rgb2spec.eval_sigmoid_poly(texel[..., 0:3], lam) * texel[..., 3:4])
+    if tag == scene_mod.LIGHT_PROJECTION:
+        li = li * inside[..., None]
+    return li
+
+
 def sample_li(scene, light_all, light_id, p, lam, u2, tags=None) -> LightLiSample:
     """SampleLi for a per-lane chosen light id. p (...,3), u2 (...,2);
     tags: the scene's light tags (scene_tags; read here when None)."""
@@ -202,7 +230,8 @@ def sample_li(scene, light_all, light_id, p, lam, u2, tags=None) -> LightLiSampl
     inf = torch.full(shape, torch.inf, dtype=torch.float32, device=p.device)
     # (wi, dist, pdf, li) of each tag the scene holds
     branch = {}
-    if tags & {scene_mod.LIGHT_POINT, scene_mod.LIGHT_SPOT}:
+    if tags & {scene_mod.LIGHT_POINT, scene_mod.LIGHT_SPOT, scene_mod.LIGHT_PROJECTION,
+               scene_mod.LIGHT_GONIOMETRIC}:
         to_l = lpos - p
         d2 = torch.clamp(vm.length_squared(to_l), min=1e-12)
         wi_point = to_l * torch.rsqrt(d2)[..., None]
@@ -216,6 +245,9 @@ def sample_li(scene, light_all, light_id, p, lam, u2, tags=None) -> LightLiSampl
             falloff = t_ss * t_ss * (3.0 - 2.0 * t_ss)
             branch[scene_mod.LIGHT_SPOT] = (wi_point, dist_point, one,
                                             li_point * falloff[..., None])
+        for tag in tags & {scene_mod.LIGHT_PROJECTION, scene_mod.LIGHT_GONIOMETRIC}:
+            branch[tag] = (wi_point, dist_point, one,
+                           _textured_point(scene, tag, rec, wi_point, li_point, lam))
     if scene_mod.LIGHT_DISTANT in tags:
         branch[scene_mod.LIGHT_DISTANT] = (lpos.expand(p.shape), inf, one, emit)
     if tags & {scene_mod.LIGHT_UNIFORM_INFINITE, scene_mod.LIGHT_IMAGE_INFINITE}:
@@ -244,8 +276,7 @@ def sample_li(scene, light_all, light_id, p, lam, u2, tags=None) -> LightLiSampl
     wi, dist, pdf, li = torch.zeros_like(p), inf, one, torch.zeros_like(emit)
     for tag in sorted(tags):
         if tag not in branch:
-            raise NotImplementedError(f"light tag {tag} is not ported yet (ROADMAP "
-                                      "queue 1, item 3: it reads the texture atlas)")
+            raise NotImplementedError(f"light tag {tag} is unknown")
         is_t = ltype == tag
         b_wi, b_dist, b_pdf, b_li = branch[tag]
         wi = torch.where(is_t[..., None], b_wi, wi)

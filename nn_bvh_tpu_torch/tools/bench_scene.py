@@ -473,6 +473,174 @@ def build_motion_scene(size: int = BENCH_SIZE):
     return sc, dbvh, motion_camera(size)
 
 
+PBRT_TEX = 2048  # the pbrt bench scene's floor imagemap, pixels a side
+
+PBRT_BENCH = """LookAt 0 3 -9  0 1 0  0 1 0
+Camera "perspective" "float fov" [50]
+Film "rgb" "integer xresolution" [{size}] "integer yresolution" [{size}] "string filename" "bench.exr"
+Sampler "sobol" "integer pixelsamples" [16]
+Integrator "path" "integer maxdepth" [{depth}]
+WorldBegin
+LightSource "infinite" "string filename" "sky.exr" "float scale" [0.05]
+Texture "wood" "spectrum" "imagemap" "string filename" "floor.png"
+Texture "paint" "spectrum" "imagemap" "string filename" "paint.png"
+Texture "tint" "spectrum" "scale" "texture tex" "paint" "float scale" [0.8]
+Texture "checks" "spectrum" "checkerboard" "float uscale" [16]
+  "rgb tex1" [0.1 0.15 0.5] "rgb tex2" [0.85 0.8 0.3]
+Texture "mask" "float" "imagemap" "string filename" "mask.png"
+MakeNamedMaterial "paint" "string type" "diffuse" "rgb reflectance" [0.6 0.5 0.4]
+MakeNamedMaterial "metal" "string type" "conductor" "rgb reflectance" [0.9 0.75 0.5]
+  "float roughness" [0.15]
+MakeNamedMaterial "blend" "string type" "mix" "string materials" ["paint" "metal"]
+  "texture amount" "mask"
+AttributeBegin
+  Material "diffuse" "texture reflectance" "checks"
+  Shape "plymesh" "string filename" "spheres0.ply"
+AttributeEnd
+AttributeBegin
+  Material "diffuse" "texture reflectance" "tint"
+  Shape "plymesh" "string filename" "spheres1.ply"
+AttributeEnd
+AttributeBegin
+  NamedMaterial "blend"
+  Shape "plymesh" "string filename" "spheres2.ply"
+AttributeEnd
+AttributeBegin
+  Material "diffuse" "texture reflectance" "wood"
+  Shape "trianglemesh" "point3 P" [-8 0 -8 8 0 -8 8 0 8 -8 0 8] "integer indices" [0 1 2 0 2 3]
+    "point2 uv" [0 0 4 0 4 4 0 4]
+AttributeEnd
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [20 18 16] "bool twosided" true
+  Material "diffuse" "rgb reflectance" [0.5 0.5 0.5]
+  Shape "trianglemesh" "point3 P" [-2 6 -2 2 6 -2 2 6 2 -2 6 2] "integer indices" [0 1 2 0 2 3]
+AttributeEnd
+AttributeBegin
+  NamedMaterial "blend"
+  Translate 2.6 0.05 -2.4
+  Scale 0.9 0.9 0.9
+  Shape "loopsubdiv" "integer levels" [3] "point3 P" [0 0 0 1 0 0 0 1 0 0 0 1]
+    "integer indices" [0 2 1 0 1 3 0 3 2 1 2 3]
+AttributeEnd
+AttributeBegin
+  Material "diffuse" "rgb reflectance" [0.3 0.6 0.25]
+  Translate -2.8 0 -2.6
+{curves}AttributeEnd
+AttributeBegin
+  Material "diffuse" "texture reflectance" "checks"
+  Translate 0 0.45 -3.2
+  Shape "sphere" "float radius" [0.45]
+AttributeEnd
+"""
+
+PBRT_CLOUD = """LookAt 0 0.8 -4  0 0.6 0  0 1 0
+Camera "perspective" "float fov" [45]
+Film "rgb" "integer xresolution" [{size}] "integer yresolution" [{size}]
+Sampler "sobol" "integer pixelsamples" [16]
+Integrator "volpath" "integer maxdepth" [{depth}]
+WorldBegin
+MakeNamedMedium "puff" "string type" "cloud" "float density" [2.0]
+  "rgb sigma_s" [1.5 1.5 1.5] "rgb sigma_a" [0.05 0.05 0.05]
+  "point3 p0" [-1 -0.5 -1] "point3 p1" [1 1.5 1]
+AttributeBegin
+  Material ""
+  MediumInterface "puff" ""
+  Shape "trianglemesh" "point3 P" [-1 -0.5 -1  1 -0.5 -1  1 1.5 -1  -1 1.5 -1  -1 -0.5 1  1 -0.5 1  1 1.5 1  -1 1.5 1]
+    "integer indices" [0 2 1 0 3 2  4 5 6 4 6 7  0 5 4 0 1 5  3 6 2 3 7 6  0 7 3 0 4 7  1 6 5 1 2 6]
+AttributeEnd
+AttributeBegin
+  Material "diffuse" "rgb reflectance" [0.5 0.5 0.5]
+  Shape "trianglemesh" "point3 P" [-5 -0.5 -5 5 -0.5 -5 5 -0.5 5 -5 -0.5 5] "integer indices" [0 1 2 0 2 3]
+AttributeEnd
+AttributeBegin
+  Translate 0 2.5 0
+  AreaLightSource "diffuse" "rgb L" [10 10 10] "bool twosided" true
+  Shape "trianglemesh" "point3 P" [-1 0 -1  1 0 -1  1 0 1  -1 0 1] "integer indices" [0 1 2 0 2 3]
+AttributeEnd
+"""
+
+
+def _sphere_grid(center, radius, n_theta: int, n_phi: int):
+    """SceneBuilder.add_sphere's vertices, normals and faces."""
+    tt, pp = np.meshgrid(np.linspace(0, np.pi, n_theta + 1), np.linspace(0, 2 * np.pi, n_phi + 1),
+                         indexing="ij")
+    n = np.stack([np.sin(tt) * np.cos(pp), np.sin(tt) * np.sin(pp), np.cos(tt)], -1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(n_theta), np.arange(n_phi), indexing="ij")
+    a, b = i * (n_phi + 1) + j, (i + 1) * (n_phi + 1) + j
+    c, d = b + 1, a + 1
+    faces = np.stack([np.stack([a, b, d], -1), np.stack([b, c, d], -1)], 2)
+    # add_sphere's order: per (i, j) the upper triangle (not on the first
+    # ring), then the lower (not on the last)
+    faces = faces[np.stack([i > 0, i < n_theta - 1], -1)]
+    verts = (n * radius + np.asarray(center, np.float32)).astype(np.float32)
+    return verts, n.astype(np.float32), faces
+
+
+def write_binary_ply(path: str, verts, normals, uvs, faces) -> None:
+    """Little-endian binary PLY: x y z nx ny nz u v, triangle faces."""
+    head = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(verts)}\n"
+            + "".join(f"property float {p}\n" for p in ("x", "y", "z", "nx", "ny", "nz", "u", "v"))
+            + f"element face {len(faces)}\nproperty list uchar int vertex_indices\nend_header\n")
+    face = np.zeros(len(faces), np.dtype([("n", "u1"), ("i", "<i4", (3,))]))
+    face["n"] = 3
+    face["i"] = faces
+    with open(path, "wb") as f:
+        f.write(head.encode())
+        f.write(np.concatenate([verts, normals, uvs], 1).astype("<f4").tobytes())
+        f.write(face.tobytes())
+
+
+def write_pbrt_bench(directory: str, size: int = BENCH_SIZE, tex: int = PBRT_TEX) -> dict:
+    """The bench configuration as pbrt files in `directory` -> {"bench":
+    path, "cloud": path}. bench.py's 24 spheres (bench_geometry's draws and
+    tessellation, with add_sphere's uvs) as three binary plymesh files,
+    every third sphere each, under a checkerboard, a scaled 256^2 imagemap
+    and a mix whose amount is an imagemap; the floor under a tex x tex imagemap
+    PNG (the port's write_png); the emissive quad; a loopsubdiv shape, four
+    curve strands and an analytic sphere; an infinite light from an
+    equal-area EXR (the port's write_exr); Film size x size, Sobol 16 spp,
+    Path to BENCH_DEPTH. "cloud": a cloud medium in a box over a floor under an
+    emissive quad, VolPath to 10."""
+    import os
+
+    from ..utils import image
+
+    rs = np.random.RandomState(42)
+    uvs = sphere_uvs(24, 48)
+    parts = [[], [], []]
+    for i in range(24):
+        c = (rs.rand(3) - 0.5) * np.array([6.0, 2.0, 6.0]) + np.array([0, 1.2, 0])
+        r = 0.25 + 0.45 * rs.rand()
+        parts[i % 3].append(_sphere_grid(c, r, 24, 48))
+    for k, spheres in enumerate(parts):
+        off = np.cumsum([0] + [len(v) for v, _, _ in spheres])
+        write_binary_ply(os.path.join(directory, f"spheres{k}.ply"),
+                         np.concatenate([v for v, _, _ in spheres]),
+                         np.concatenate([n for _, n, _ in spheres]),
+                         np.concatenate([uvs] * len(spheres)),
+                         np.concatenate([f + o for (_, _, f), o in zip(spheres, off)]))
+    yy, xx = np.mgrid[0:tex, 0:tex].astype(np.float32) / tex
+    grain = 0.5 + 0.5 * np.sin(60.0 * xx + 4.0 * np.sin(11.0 * yy) + 2.0 * np.sin(37.0 * xx * yy))
+    floor = np.stack([0.45 * grain + 0.25, 0.3 * grain + 0.15, 0.15 * grain + 0.06], -1)
+    image.write_png(os.path.join(directory, "floor.png"), floor)
+    image.write_png(os.path.join(directory, "mask.png"), rs.rand(64, 64, 3).astype(np.float32))
+    stripes = 0.5 + 0.5 * np.cos(2 * np.pi * 6 * np.mgrid[0:256, 0:256][0] / 256.0)
+    paint = np.stack([0.8 * stripes + 0.1, 0.5 * stripes + 0.1, 0.2 + 0 * stripes], -1)
+    image.write_png(os.path.join(directory, "paint.png"), paint)
+    image.write_exr(os.path.join(directory, "sky.exr"), sky_map(128))
+    curves = "".join(
+        f'  Shape "curve" "string type" "flat" "point3 P" [{x} 0 {z}  {x + 0.1} 0.4 {z}  '
+        f'{x - 0.1} 0.8 {z + 0.1}  {x} 1.2 {z}] "float width0" [0.06] "float width1" [0.02]\n'
+        for x, z in ((0.0, 0.0), (0.3, 0.1), (0.6, -0.1), (0.9, 0.05)))
+    paths = {"bench": os.path.join(directory, "bench.pbrt"),
+             "cloud": os.path.join(directory, "cloud.pbrt")}
+    with open(paths["bench"], "w") as f:
+        f.write(PBRT_BENCH.format(size=size, depth=BENCH_DEPTH, curves=curves))
+    with open(paths["cloud"], "w") as f:
+        f.write(PBRT_CLOUD.format(size=size, depth=10))
+    return paths
+
+
 def probe_batches(sc, cam, dev):
     """chip_smoke phase 3's batches: camera rays of sample 0 and incoherent
     rays (origins in the scene box, uniform directions), one t_max with 20%

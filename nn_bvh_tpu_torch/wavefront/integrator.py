@@ -198,7 +198,7 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
     specular_prev = torch.ones(R, dtype=torch.bool, device=device)
     prev_pdf = torch.ones(R, **f32)
     eta_scale = torch.ones(R, **f32)
-    # ray-cone state (texture LOD; textures are not in this slice)
+    # ray-cone state (the texture LOD of gather_material)
     cone_w = torch.zeros(R, **f32)
     cone_s = torch.full((R,), texture.camera_spread(cam.fov, cam.height), **f32)
 

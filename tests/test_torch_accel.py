@@ -218,7 +218,7 @@ def test_build_scene_bvh_reorders_like_jax():
     """Port build (numpy SAH) vs the JAX package's numpy SAH path."""
     js, ts = reduced_bench_scene(j_scene), reduced_bench_scene(scene)
     j_sc, j_dbvh, _ = j_accel.build_scene_bvh(js, method="sah_numpy")
-    t_sc, t_dbvh, _ = accel.build_scene_bvh(ts)
+    t_sc, t_dbvh, _ = accel.build_scene_bvh(ts, method="sah_numpy")
     for name in ("tri_p", "tri_shade", "light_params"):
         np.testing.assert_array_equal(getattr(t_sc, name), np.asarray(getattr(j_sc, name)))
     np.testing.assert_array_equal(t_dbvh.node_meta, np.asarray(j_dbvh.node_meta))
@@ -286,8 +286,9 @@ def test_dispatch_backend_follows_device(small_scene):
 
 def test_scene_from_numpy_refuses_unported_features():
     """Textures (a textured material, a texture-driven mix amount) and the
-    two lights that read the texture atlas (projection, goniometric) are
-    still unported: refused, naming their ROADMAP item."""
+    two lights that read the texture atlas (projection, goniometric) come
+    across with their tables; what the port does not know (a material or
+    light tag beyond the JAX package's) is refused."""
     def jax_scene(feature):
         b = j_scene.SceneBuilder()
         m = b.add_material("diffuse")
@@ -303,10 +304,17 @@ def test_scene_from_numpy_refuses_unported_features():
         sc, dbvh, _ = j_accel.build_scene_bvh(b.build())
         return sc, dbvh
 
-    for feature, item in (("texture", "item 3"), ("mix_texture_amount", "item 3"),
-                          ("projection_light", "item 3"), ("goniometric_light", "item 3")):
+    for feature in ("texture", "mix_texture_amount", "projection_light", "goniometric_light"):
         sc, dbvh = jax_scene(feature)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-            scene.scene_from_numpy(sc._asdict(), dbvh._asdict(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
-        scene.SceneBuilder().add_material("diffuse", texture=0)
+        tsc, _ = scene.scene_from_numpy(sc._asdict(), dbvh._asdict(), "cpu")
+        for name in ("tex_atlas", "tex_desc", "mat_params", "light_type", "light_params"):
+            np.testing.assert_array_equal(getattr(tsc, name).numpy(),
+                                          np.asarray(getattr(sc, name)), err_msg=name)
+        assert tsc.tex_desc.dtype == torch.int32
+    fields = sc._asdict()
+    for name, tag in (("mat_type", scene.MAT_SUBSURFACE + 1),
+                      ("light_type", scene.LIGHT_SPHERE_AREA + 1)):
+        bad = dict(fields, **{name: np.full_like(np.asarray(fields[name]), tag)})
+        with pytest.raises(NotImplementedError, match="unknown"):
+            scene.scene_from_numpy(bad, dbvh._asdict(), "cpu")
+    assert scene.SceneBuilder().add_material("diffuse", texture=0) == 0

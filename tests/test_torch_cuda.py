@@ -218,6 +218,84 @@ def test_wave_kernel_matches_plain_on_cuda():
 
 
 @pytest.mark.cuda
+def test_texture_lookup_on_card_matches_cpu():
+    """lookup on the card against the CPU: level 0 and the rounded level
+    equal, trilinear within atol 1e-5 (the level's log2 rounds apart);
+    out-of-range ids and non-finite uvs clamp instead of stopping the card."""
+    _need_card()
+    from nn_bvh_tpu_torch.geometry import texture
+
+    rs = np.random.RandomState(2)
+    atlas, desc = texture.pack_atlas([(rs.rand(37, 53, 3) * 1.6).astype(np.float32),
+                                      rs.rand(64, 64, 3).astype(np.float32)])
+    n = 65536
+    uv = (rs.rand(n, 2) * 6 - 3).astype(np.float32)
+    uv[:64] = np.nan
+    tex_id = rs.randint(-2, 4, n).astype(np.int32)
+    foot = (rs.rand(n) * 18 - 14).astype(np.float32)
+    args = [atlas, desc, tex_id, uv]
+    cpu = [torch.from_numpy(a) for a in args]
+    gpu = [t.cuda() for t in cpu]
+    for kw, tol in ((dict(), 0.0), (dict(trilinear=False), 0.0), (dict(trilinear=True), 1e-5)):
+        f = None if not kw else torch.from_numpy(foot)
+        a = texture.lookup(*cpu, foot_log2=f, **kw)
+        b = texture.lookup(*gpu, foot_log2=None if f is None else f.cuda(), **kw).cpu()
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(b[64:].numpy(), a[64:].numpy(), atol=max(tol, 1e-6), rtol=0)
+
+
+@pytest.mark.cuda
+def test_textured_wave_on_card():
+    """A textured scene (image, checkerboard and procedural textures, a
+    texture-driven mix, a projection and a goniometric light): the same
+    film through bvh4_traverse and the plain traversal on the card, and
+    close to the CPU's film."""
+    _need_card()
+    from nn_bvh_tpu_torch.geometry import texture
+
+    rs = np.random.RandomState(4)
+    b = scene.SceneBuilder()
+    red = b.add_material("diffuse", reflectance=(0.7, 0.2, 0.1))
+    metal = b.add_material("conductor", reflectance=(0.9, 0.8, 0.6), roughness=0.2)
+    chk = b.add_material("diffuse", texture=b.add_texture_checker(uscale=8))
+    img = b.add_material("diffuse", texture=b.add_texture_image(
+        rs.rand(64, 48, 3).astype(np.float32)))
+    fbm = b.add_material("diffuse", texture=b.add_texture_procedural("marble"))
+    mask = b.add_texture_image(rs.rand(32, 32, 3).astype(np.float32))
+    mix = b.add_material("mix", mix_materials=(red, metal), mix_amount=-(mask + 1.0))
+    tt, pp = np.meshgrid(np.linspace(0, 1, 13), np.linspace(0, 2, 25), indexing="ij")
+    sphere_uv = np.stack([pp, tt], -1).reshape(-1, 2).astype(np.float32)
+    for i, m in enumerate((chk, img, fbm, mix, metal)):
+        b.add_sphere(((i - 2) * 1.3, 0.6, 0), 0.55, m, n_theta=12, n_phi=24, uvs=sphere_uv)
+    b.add_quad((-6, 0, -6), (6, 0, -6), (6, 0, 6), (-6, 0, 6), chk,
+               uvs=np.asarray([(0, 0), (6, 0), (6, 6), (0, 6)], np.float32))
+    b.add_quad((-1, 4, -1), (1, 4, -1), (1, 4, 1), (-1, 4, 1), red,
+               emission_rgb=(1.0, 0.9, 0.8), emission_scale=8.0)
+    b.add_projection_light((0, 5, -3), (0, -1, 0.5), rs.rand(16, 16, 3).astype(np.float32),
+                           scale=20.0, fov=40.0)
+    b.add_goniometric_light((2, 3, -2), (rs.rand(16, 16, 3) + 0.2).astype(np.float32), scale=6.0)
+    sc, dbvh = accel.build_scene_bvh(b.build())[:2]
+    assert texture.has_textures(sc)
+    cam = camera.make_perspective(transform.look_at((0, 2.5, -7), (0, 0.6, 0), (0, 1, 0)),
+                                  fov=45.0, width=64, height=48)
+    cfg = integrator.IntegratorConfig(max_depth=3, rr_depth=2)
+    scfg = samplers.make_sampler("sobol", seed=0, spp=2)
+    films = {}
+    for dev, backend in (("cuda", "cuda_bvh4"), ("cuda", "plain"), ("cpu", "plain")):
+        isect = dispatch.make_intersectors(sc, dbvh, dev, backend=backend)
+        wave = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=isect)
+        f = film.make_film(cam.height, cam.width, dev)
+        for s in range(2):
+            f = wave(f, s)
+        films[dev, backend] = film.develop(f).cpu().numpy()
+    assert np.array_equal(films["cuda", "cuda_bvh4"], films["cuda", "plain"])
+    g, c = films["cuda", "plain"], films["cpu", "plain"]
+    assert np.isfinite(g).all() and g.mean() > 0
+    assert abs(g.mean() - c.mean()) <= 0.01 * c.mean()
+    assert np.isclose(g, c, atol=1e-3, rtol=1e-2).all(-1).mean() >= 0.95
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("interface", [False, True], ids=["opaque_sphere", "fog_boundary"])
 def test_phased_volpath_kernel_matches_plain_trace(interface):
     """VolPath's phased wave through cuda_bvh4 (padded, cut and re-sorted

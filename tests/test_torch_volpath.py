@@ -489,9 +489,9 @@ def test_wave_dispatch_rule():
 @pytest.mark.parametrize("extra", ["none", "env_map", "sphere_light", "quadric"])
 def test_scene_check_takes_media_refuses_the_rest(extra):
     """scene_from_numpy carries media across, and with them image env maps,
-    sphere area lights and analytic quadrics; what is left unported (a
-    goniometric light, which reads the texture atlas) still raises, naming
-    its ROADMAP item."""
+    sphere area lights, analytic quadrics and a goniometric light (which
+    reads the texture atlas); a light tag the port does not know still
+    raises."""
     b = j_scene.SceneBuilder()
     m = b.add_material("diffuse")
     fog = b.add_medium(sigma_a=(0.1, 0.1, 0.1), sigma_s=(0.5, 0.5, 0.5))
@@ -518,5 +518,10 @@ def test_scene_check_takes_media_refuses_the_rest(extra):
         np.testing.assert_array_equal(tsc.tri_shade.numpy(), np.asarray(sc.tri_shade))
     b.add_goniometric_light((0, 2, 0), np.ones((4, 4, 3), np.float32))
     sc, dbvh, _ = j_accel.build_scene_bvh(b.build())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
-        scene.scene_from_numpy(sc._asdict(), dbvh._asdict(), "cpu")
+    tsc, _ = scene.scene_from_numpy(sc._asdict(), dbvh._asdict(), "cpu")
+    assert tsc.n_media == 1 and scene.LIGHT_GONIOMETRIC in tsc.light_type.tolist()
+    np.testing.assert_array_equal(tsc.tex_atlas.numpy(), np.asarray(sc.tex_atlas))
+    bad = dict(sc._asdict(), light_type=np.full_like(np.asarray(sc.light_type),
+                                                     scene.LIGHT_SPHERE_AREA + 1))
+    with pytest.raises(NotImplementedError, match="unknown"):
+        scene.scene_from_numpy(bad, dbvh._asdict(), "cpu")
