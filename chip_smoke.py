@@ -200,6 +200,26 @@ points, once per traversal backend, and checks it:
    19.2-19.4 go through phase 17's `scene_waves`: each scene's film
    through the plain traversal agrees with the cuda_bvh4 film (phase 5's
    rule). Its launches count in bvh4_traverse's.
+20. the remaining integrators on the bench configuration (52,996
+   triangles, 400x400, depth 4, power light sampler, seed 0) through
+   cuda_bvh4: 20.1 the RandomWalk and AO waves through make_wave_fn (no
+   MIS, no light sampling, as the CLI sets them; phase 17's scene_waves:
+   ms a wave, the median of 3 after a warm-up); 20.2 render_lightpath and
+   render_bdpt at 1 spp; 20.3 render_sppm's iterations (run_sppm, 2
+   iterations of R photons) with the photons its per-cell cap dropped;
+   20.4 render_mlt at 1 spp (4,096 chains, 39 mutation steps, 9 bootstrap
+   batches: the check, on the card, that the wave's re-sort carries each
+   chain's sample index). For each: seconds (CUDA events), bvh4_traverse
+   launches = traversal calls and no other kernel, CUDA kernels and copies
+   (torch.profiler, a second run, whose image must equal the first's for
+   the line's "repeatable"), peak memory, the image finite with mean > 0,
+   and the same seed through the plain traversal by phase 5's rule; 20.5
+   each mean against Path's (phase 5's film): LightPath within 12%, MLT
+   within max(0.03, 15%), BDPT within 5% (the JAX package's own bands),
+   SPPM's ratio printed; 20.6 cli.render on phase 19's pbrt file with
+   `--integrator bdpt --spp 1 --stats` (the EXR read back bit-equal, the
+   stats JSON's dist_avg_path_length) and with `--pixelstats` (four PNGs
+   read back). Its launches count in bvh4_traverse's.
 
 Any failure raises (exit code != 0). The last two lines of standard output
 are a JSON record of the kernels and {"ok": true, "device": {...}}.
@@ -209,6 +229,7 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 DEPTH = 4  # bench_scene.BENCH_DEPTH
@@ -1415,13 +1436,13 @@ def untextured(sc):
                       tex_desc=np.zeros((1, 1, 3), np.int32))
 
 
-def phase_scene_input(torch, dev) -> int:
-    """Phase 19 (see the module doc) -> bvh4_traverse launches of its main
-    path (the CLI render and the timed waves)."""
+def phase_scene_input(torch, dev, d) -> tuple:
+    """Phase 19 (see the module doc), its pbrt files written into directory
+    d -> (bvh4_traverse launches of its main path (the CLI render and the
+    timed waves), the paths write_pbrt_bench returned)."""
     import contextlib
     import io
     import os
-    import tempfile
 
     import numpy as np
     from nn_bvh_tpu_torch import accel, native
@@ -1434,69 +1455,250 @@ def phase_scene_input(torch, dev) -> int:
 
     t0 = time.perf_counter()
     total = 0
+    paths = bench_scene.write_pbrt_bench(d)
+    print(f"phase 19: wrote the pbrt bench scene (three binary plymesh files, a "
+          f"{bench_scene.PBRT_TEX}^2 PNG, a 128^2 equal-area EXR) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out = os.path.join(d, "out.exr")
+    buf = io.StringIO()
+    reset_counts()
+    torch.cuda.synchronize()
+    with contextlib.redirect_stdout(buf):
+        img = render.main([paths["bench"], "--outfile", out, "--stats"])
+    counts = launch_counts()
+    stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    cli_launches = counts.get("bvh4_traverse", 0)
+    check(set(counts) == {"bvh4_traverse"} and cli_launches > 0,
+          f"19.1: launches {counts}")
+    check(native.available(), "19.1: the native BVH builder was not used")
+    check(np.array_equal(image.read_exr(out), img), "19.1: out.exr differs from the image")
+    check(bool(np.isfinite(img).all()) and img.mean() > 0, f"19.1: image mean {img.mean()}")
+    total += cli_launches
+    print(f"phase 19.1: cli.render {paths['bench']} on the card: parse {stats['parse_s']} s, "
+          f"atlas pack {stats['atlas_pack_s']} s ({stats['atlas_mib']} MiB), scene build "
+          f"{stats['compile_s']} s, BVH build (native) {stats['bvh_s']} s, render "
+          f"{stats['render_s']} s for {stats['spp']} spp ({stats['rays_per_s']} rays/s, "
+          f"R*(2*depth+1)*spp/s), peak memory {stats.get('peak_mem_mib')} MiB; "
+          f"{stats['tris']} triangles, {stats['lights']} lights; {cli_launches} "
+          f"bvh4_traverse launches; out.exr read back bit-equal; image mean "
+          f"{img.mean():.6f}", flush=True)
+
+    res = pbrt_parser.parse_file(paths["bench"])
+    sc, dbvh, _ = accel.build_scene_bvh(res.builder.build())
+    cam = camera_mod.make_perspective(res.cam_to_world, res.fov, res.width, res.height)
+    cfg = integrator.IntegratorConfig(max_depth=res.max_depth, mis=True, rr_depth=2)
+    scfg = samplers.make_sampler("sobol", seed=0, spp=res.spp)
+    rs = np.random.RandomState(19)
+    res.builder.add_projection_light((0, 7, -4), (0, -1, 0.55),
+                                     rs.rand(256, 256, 3).astype(np.float32),
+                                     scale=40.0, fov=40.0)
+    res.builder.add_goniometric_light((3, 4, -3), (rs.rand(128, 128, 3) + 0.2)
+                                      .astype(np.float32), scale=15.0)
+    sc_l, dbvh_l, _ = accel.build_scene_bvh(res.builder.build())
+    labels = ("19.2 textured", "19.2 untextured", "19.3 textured + two textured lights")
+    waves = scene_waves(torch, 19, dict(zip(labels, ((sc, dbvh), (untextured(sc), dbvh),
+                                                     (sc_l, dbvh_l)))), cam, cfg, scfg,
+                        dev, rounds=5)
+    total += sum(w["launches"] for w in waves.values())
+    (ms_t, k_t), (ms_u, k_u), (ms_l, k_l) = ((waves[k]["ms"], waves[k]["kernels"])
+                                             for k in labels)
+    diff = lambda a, b: a - b if a and b else "not measured"
+    print(f"phase 19.2: texturing costs {ms_t - ms_u:.2f} ms a wave ({ms_t / ms_u:.3f}x) "
+          f"and {diff(k_t, k_u)} CUDA kernels a wave; phase 19.3: the two textured "
+          f"lights {ms_l - ms_t:.2f} ms and {diff(k_l, k_t)} kernels", flush=True)
+
+    t1 = time.perf_counter()
+    sc_c, dbvh_c, cam_c, res_c = pbrt_parser.load_scene(paths["cloud"])
+    check(sc_c.n_media == 1 and int(sc_c.med_grid_id[0]) == 0, "19.4: no cloud grid")
+    cfg_c = integrator.IntegratorConfig(kind="volpath", max_depth=res_c.max_depth, rr_depth=2)
+    print(f"phase 19.4: parsed the cloud scene in {time.perf_counter() - t1:.1f} s", flush=True)
+    label = "19.4 cloud medium, VolPath (the phased wave), one wave"
+    total += scene_waves(torch, 19, {label: (sc_c, dbvh_c)}, cam_c, cfg_c,
+                         samplers.make_sampler("sobol", seed=0, spp=16), dev, rounds=1,
+                         profile=False)[label]["launches"]
+    print(f"phase 19: done in {time.perf_counter() - t0:.0f} s", flush=True)
+    return total, paths
+
+
+def render_run(torch, label, render, isect, plain_render, t0, unit=None,
+               unit_name="a render"):
+    """One render of the integrators phase on the card (render(): an image,
+    through `isect`): its seconds by CUDA events, bvh4_traverse launches
+    (= isect's traversal calls, no other kernel), peak memory, CUDA kernels
+    and copies (torch.profiler) of unit() (`unit_name`: an iteration or a
+    mutation step; None: a second render, whose image must equal the first
+    bit for bit for the line's "repeatable"), the image finite with mean > 0, and
+    plain_render() (the same seed through the plain traversal) by phase
+    5's rule; the host seconds of the profile and of the plain render end
+    the line -> (image, launches, kernels of the unit)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    isect.n_calls = 0
+    ms, img = event_ms(torch, render)
+    counts = launch_counts()
+    launches = counts.get("bvh4_traverse", 0)
+    calls = isect.n_calls
+    check(set(counts) == {"bvh4_traverse"} and launches == calls,
+          f"{label}: launches {counts} for {calls} traversal calls")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    mean = float(img.mean())
+    check(bool(torch.isfinite(img).all()) and mean > 0, f"{label}: bad image, mean {mean}")
+    again = []
+    t_prof = time.perf_counter()
+    n_k = cuda_kernel_count(torch, unit or (lambda: again.append(render())))
+    t_plain = time.perf_counter()
+    img_p = plain_render()
+    t_end = time.perf_counter()
+    close, rel = film_agreement(img, img_p)
+    check(close >= 0.995 and rel <= 1e-3, f"{label}: image agrees with the plain traversal's "
+          f"on {close:.5f} of pixels, mean rel diff {rel:.3g}")
+    repeat = f", repeatable: {bool(torch.equal(again[0], img))}" if again else ""
+    print(f"phase {label}: {ms / 1e3:.3f} s (CUDA events), {launches} bvh4_traverse launches = "
+          f"traversal calls, CUDA kernels and copies (torch.profiler) {unit_name}: "
+          f"{n_k if n_k is not None else 'not measured'}, peak memory {peak:.1f} MiB above "
+          f"{base / 2**20:.1f} MiB; image mean {mean:.6f}{repeat}; the same seed through the "
+          f"plain traversal: {close:.6f} of pixels agree, mean rel diff {rel:.3g} (profile "
+          f"{t_plain - t_prof:.1f} s, plain render {t_end - t_plain:.1f} s) "
+          f"[{time.perf_counter() - t0:.0f} s]", flush=True)
+    return img, launches, n_k
+
+
+def phase_integrators(torch, sc, dbvh, cam, dev, ref_xyz, bench_pbrt: str) -> int:
+    """Phase 20: RandomWalk, AO, LightPath, BDPT, SPPM and MLT on the bench
+    configuration through cuda_bvh4, and cli.render with bdpt, --stats and
+    --pixelstats (see the module doc) -> bvh4_traverse launches of its
+    main path."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    from nn_bvh_tpu_torch.accel import dispatch
+    from nn_bvh_tpu_torch.cli import render
+    from nn_bvh_tpu_torch.core import colorspace, rng
+    from nn_bvh_tpu_torch.geometry import scene as scene_mod
+    from nn_bvh_tpu_torch.scatter import lightsamplers
+    from nn_bvh_tpu_torch.tools.bench_scene import bench_config
+    from nn_bvh_tpu_torch.utils import image
+    from nn_bvh_tpu_torch.wavefront import bdpt, integrator, lightpath, mlt, sppm
+
+    t0 = time.perf_counter()
+    cfg, scfg = bench_config()
+    plain = lambda: dispatch.make_intersectors(sc, dbvh, dev, backend="plain")
+    total = 0
+    # 20.1: the RandomWalk and AO waves (the JAX CLI's settings: no MIS, no NEE)
+    for kind in ("randomwalk", "ao"):
+        kcfg = cfg._replace(kind=kind, mis=False, rr_depth=99, sample_lights=False)
+        label = f"20.1 {kind}"
+        total += scene_waves(torch, "20.1", {label: (sc, dbvh)}, cam, kcfg, scfg, dev)[label][
+            "launches"]
+
+    # 20.2-20.4: the render functions at 1 spp (SPPM: 2 iterations of R photons)
+    R = cam.width * cam.height
+    C, K, n_boot = mlt.chain_counts(1, R)
+    sppm_state = []
+
+    def run_sppm(isect, n_iterations=2):
+        st = sppm.run_sppm(sc, dbvh, cam, n_iterations=n_iterations, photons_per_iter=R,
+                           cfg=cfg, device=dev, isect=isect)
+        sppm_state[:] = [st]
+        return sppm.develop(st, n_iterations, R, cam.height, cam.width)
+
+    def sppm_iteration():
+        run_sppm(lightpath.make_intersectors(sc, dbvh, dev), 1)
+
+    scene_d = scene_mod.to_device(sc, dev)
+    ls_tables = lightsamplers.build(sc, cfg.light_sampler, dev)
+    mlt_isect = dispatch.make_intersectors(sc, dbvh, dev)
+    u_step = rng.hash_float(torch.arange(C, device=dev)[:, None],
+                            torch.arange(mlt._n_dims(cfg), device=dev)[None, :], 0, 17)
+
+    def mlt_step():
+        mlt.trace_table(scene_d, cam, cfg, u_step, 0, 1, ls_tables, mlt_isect)
+
+    # name -> (label, render through the intersectors i, profiled unit)
+    runs = {
+        "lightpath": ("20.2 lightpath, 1 spp", lambda i: lightpath.render_lightpath(
+            sc, dbvh, cam, spp=1, seed=0, cfg=cfg, device=dev, isect=i), ()),
+        "bdpt": ("20.2 bdpt, 1 spp", lambda i: bdpt.render_bdpt(
+            sc, dbvh, cam, spp=1, seed=0, cfg=cfg, device=dev, isect=i), ()),
+        "sppm": ("20.3 sppm, 2 iterations of R photons", run_sppm,
+                 (sppm_iteration, "an iteration")),
+        "mlt": (f"20.4 mlt, 1 spp ({C} chains, {K} steps, {n_boot} bootstrap batches)",
+                lambda i: mlt.render_mlt(sc, dbvh, cam, spp=1, seed=0, cfg=cfg, device=dev,
+                                         isect=i),
+                (mlt_step, f"a mutation step's trace of {C:,} chains")),
+    }
+    means = {}
+    for name, (label, fn, unit) in runs.items():
+        isect = mlt_isect if name == "mlt" else lightpath.make_intersectors(sc, dbvh, dev)
+        check(isect.backend == "cuda_bvh4", f"CUDA picked {isect.backend}")
+        img, n, n_k = render_run(torch, label, lambda: fn(isect), isect, lambda: fn(plain()), t0,
+                                 *unit)
+        total += n
+        means[name] = float(img.mean())
+        if name == "sppm":
+            print(f"phase 20.3: sppm dropped {int(sppm_state[0].dropped)} photons over the 2 "
+                  f"iterations (k_cap 16)", flush=True)
+
+    # 20.5: each mean against the Path image's (phase 5's film, sample 0)
+    path_mean = float(colorspace.xyz_to_linear_srgb(ref_xyz).mean())
+    # the JAX package's own bands: tests/test_lightpath.py:51, tests/test_mlt.py:39
+    # (absolute 0.03 or 15%, the larger), BDPT's 5%; SPPM's ratio is printed
+    bands = {"lightpath": 0.12 * path_mean, "mlt": max(0.03, 0.15 * path_mean),
+             "bdpt": 0.05 * path_mean, "sppm": None}
+    for name, band in bands.items():
+        diff = means[name] - path_mean
+        if band is not None:
+            check(abs(diff) <= band, f"20.5 {name}: mean {means[name]:.5f} against Path's "
+                  f"{path_mean:.5f}, outside +-{band:.5f}")
+        print(f"phase 20.5: {name} mean {means[name]:.6f} / Path mean {path_mean:.6f} = "
+              f"{means[name] / path_mean:.4f}"
+              + (f" (band +-{band:.5f})" if band is not None else " (printed, not held)"),
+              flush=True)
+
+    # 20.6: cli.render on phase 19's pbrt bench scene: bdpt with --stats,
+    # then --pixelstats
     with tempfile.TemporaryDirectory() as d:
-        paths = bench_scene.write_pbrt_bench(d)
-        print(f"phase 19: wrote the pbrt bench scene (three binary plymesh files, a "
-              f"{bench_scene.PBRT_TEX}^2 PNG, a 128^2 equal-area EXR) in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        out = os.path.join(d, "out.exr")
+        out = os.path.join(d, "bdpt.exr")
         buf = io.StringIO()
         reset_counts()
-        torch.cuda.synchronize()
+        t1 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            img = render.main([paths["bench"], "--outfile", out, "--stats"])
+            img = render.main([bench_pbrt, "--integrator", "bdpt", "--spp", "1", "--stats",
+                               "--outfile", out])
         counts = launch_counts()
         stats = json.loads(buf.getvalue().strip().splitlines()[-1])
-        cli_launches = counts.get("bvh4_traverse", 0)
-        check(set(counts) == {"bvh4_traverse"} and cli_launches > 0,
-              f"19.1: launches {counts}")
-        check(native.available(), "19.1: the native BVH builder was not used")
-        check(np.array_equal(image.read_exr(out), img), "19.1: out.exr differs from the image")
-        check(bool(np.isfinite(img).all()) and img.mean() > 0, f"19.1: image mean {img.mean()}")
-        total += cli_launches
-        print(f"phase 19.1: cli.render {paths['bench']} on the card: parse {stats['parse_s']} s, "
-              f"atlas pack {stats['atlas_pack_s']} s ({stats['atlas_mib']} MiB), scene build "
-              f"{stats['compile_s']} s, BVH build (native) {stats['bvh_s']} s, render "
-              f"{stats['render_s']} s for {stats['spp']} spp ({stats['rays_per_s']} rays/s, "
-              f"R*(2*depth+1)*spp/s), peak memory {stats.get('peak_mem_mib')} MiB; "
-              f"{stats['tris']} triangles, {stats['lights']} lights; {cli_launches} "
-              f"bvh4_traverse launches; out.exr read back bit-equal; image mean "
-              f"{img.mean():.6f}", flush=True)
-
-        res = pbrt_parser.parse_file(paths["bench"])
-        sc, dbvh, _ = accel.build_scene_bvh(res.builder.build())
-        cam = camera_mod.make_perspective(res.cam_to_world, res.fov, res.width, res.height)
-        cfg = integrator.IntegratorConfig(max_depth=res.max_depth, mis=True, rr_depth=2)
-        scfg = samplers.make_sampler("sobol", seed=0, spp=res.spp)
-        rs = np.random.RandomState(19)
-        res.builder.add_projection_light((0, 7, -4), (0, -1, 0.55),
-                                         rs.rand(256, 256, 3).astype(np.float32),
-                                         scale=40.0, fov=40.0)
-        res.builder.add_goniometric_light((3, 4, -3), (rs.rand(128, 128, 3) + 0.2)
-                                          .astype(np.float32), scale=15.0)
-        sc_l, dbvh_l, _ = accel.build_scene_bvh(res.builder.build())
-        labels = ("19.2 textured", "19.2 untextured", "19.3 textured + two textured lights")
-        waves = scene_waves(torch, 19, dict(zip(labels, ((sc, dbvh), (untextured(sc), dbvh),
-                                                         (sc_l, dbvh_l)))), cam, cfg, scfg,
-                            dev, rounds=5)
-        total += sum(w["launches"] for w in waves.values())
-        (ms_t, k_t), (ms_u, k_u), (ms_l, k_l) = ((waves[k]["ms"], waves[k]["kernels"])
-                                                 for k in labels)
-        diff = lambda a, b: a - b if a and b else "not measured"
-        print(f"phase 19.2: texturing costs {ms_t - ms_u:.2f} ms a wave ({ms_t / ms_u:.3f}x) "
-              f"and {diff(k_t, k_u)} CUDA kernels a wave; phase 19.3: the two textured "
-              f"lights {ms_l - ms_t:.2f} ms and {diff(k_l, k_t)} kernels", flush=True)
-
-        t1 = time.perf_counter()
-        sc_c, dbvh_c, cam_c, res_c = pbrt_parser.load_scene(paths["cloud"])
-        check(sc_c.n_media == 1 and int(sc_c.med_grid_id[0]) == 0, "19.4: no cloud grid")
-        cfg_c = integrator.IntegratorConfig(kind="volpath", max_depth=res_c.max_depth, rr_depth=2)
-        print(f"phase 19.4: parsed the cloud scene in {time.perf_counter() - t1:.1f} s", flush=True)
-        label = "19.4 cloud medium, VolPath (the phased wave), one wave"
-        total += scene_waves(torch, 19, {label: (sc_c, dbvh_c)}, cam_c, cfg_c,
-                             samplers.make_sampler("sobol", seed=0, spp=16), dev, rounds=1,
-                             profile=False)[label]["launches"]
-    print(f"phase 19: done in {time.perf_counter() - t0:.0f} s", flush=True)
+        check(set(counts) == {"bvh4_traverse"}, f"20.6: launches {counts}")
+        check(np.array_equal(image.read_exr(out), img) and np.isfinite(img).all()
+              and img.mean() > 0, f"20.6: bdpt image mean {img.mean()}")
+        check(stats["dist_avg_path_length"] > 1, f"20.6: stats {stats}")
+        total += counts["bvh4_traverse"]
+        print(f"phase 20.6: cli.render --integrator bdpt --spp 1 --stats: render "
+              f"{stats['render_s']} s, dist_avg_path_length {stats['dist_avg_path_length']}, "
+              f"rays_live_per_s {stats['rays_live_per_s']}, peak memory "
+              f"{stats.get('peak_mem_mib')} MiB, {counts['bvh4_traverse']} bvh4_traverse "
+              f"launches, image mean {img.mean():.6f}, EXR read back bit-equal "
+              f"[{time.perf_counter() - t1:.1f} s]", flush=True)
+        buf = io.StringIO()
+        reset_counts()
+        prefix = os.path.join(d, "ps")
+        with contextlib.redirect_stdout(buf):
+            render.main([bench_pbrt, "--spp", "1", "--pixelstats", prefix,
+                         "--outfile", os.path.join(d, "path.exr")])
+        counts = launch_counts()
+        totals = json.loads(buf.getvalue().strip().splitlines()[-1])
+        pngs = [image.read_png(f"{prefix}-{n}.png") for n in integrator.STAT_NAMES]
+        check(all(p.shape == img.shape and np.isfinite(p).all() for p in pngs)
+              and totals["stats/bounces"] > 0, f"20.6: pixelstats {totals}")
+        total += counts.get("bvh4_traverse", 0)
+        listed = ", ".join(f"{k} {v:.0f}" for k, v in totals.items())
+        print(f"phase 20.6: cli.render --pixelstats: {listed}; four PNGs read back; "
+              f"{counts.get('bvh4_traverse', 0)} bvh4_traverse launches", flush=True)
+    print(f"phase 20: done in {time.perf_counter() - t0:.0f} s, {total} bvh4_traverse launches",
+          flush=True)
     return total
 
 
@@ -1587,7 +1789,11 @@ def main() -> int:
     phase_materials(torch, dev)
     out[0]["launches"] += phase_lights(torch, dev)
     out[0]["launches"] += phase_learner(torch, sc, dbvh, cam, dev, ref_film)
-    out[0]["launches"] += phase_scene_input(torch, dev)
+    with tempfile.TemporaryDirectory() as d:
+        launches, paths = phase_scene_input(torch, dev, d)
+        out[0]["launches"] += launches
+        out[0]["launches"] += phase_integrators(torch, sc, dbvh, cam, dev, ref_film,
+                                                paths["bench"])
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

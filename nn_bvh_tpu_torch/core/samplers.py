@@ -11,8 +11,11 @@ halton, zsobol, fullsobol (one global Sobol' sequence over generated
 matrices) and pmj02bn (generated pmj02 sets). The tables of the last two
 (`sobol_v`, `pmj`) ride in the config as tensors, made on the CPU;
 `to_device` moves them to the device that draws, and a draw on another
-device raises. The MLT table kind comes with its integrator
-(ROADMAP queue 1, item 8).
+device raises. The TABLE kind reads u-values from a (lanes, D) table
+(`table[sample, clip(dim)]`): MLT's primary-sample-space chains drive the
+Path wave through it (wavefront/mlt.py), handing each lane's chain index
+in as its sample index. As in the JAX package it has no name in
+`make_sampler`; mlt builds its SamplerConfig directly.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ STRATIFIED = 1
 SOBOL = 2
 HALTON = 3
 ZSOBOL = 4
-TABLE = 5         # MLT's u-vector kind, not ported
+TABLE = 5         # MLT's u-vector kind (no name: wavefront/mlt.py builds it)
 SOBOL_GLOBAL = 6
 PMJ02 = 7
 
@@ -47,6 +50,8 @@ class SamplerConfig(NamedTuple):
     width: int = 0                    # image width: ZSobol's 2-D pixel coordinates
     sobol_v: torch.Tensor | None = None  # (64, 32) uint32 in int64 (SOBOL_GLOBAL)
     pmj: torch.Tensor | None = None      # (N, 2) float32 pmj02 set (PMJ02)
+    table: torch.Tensor | None = None    # (lanes, D) float32 u-values (TABLE); the
+    #   sample index of a draw is the row
 
 
 @functools.lru_cache(maxsize=2)
@@ -64,8 +69,11 @@ def make_sampler(kind: str = "sobol", seed: int = 0, spp: int = 16,
     """The sampler `kind` (a KINDS name); its tables on the CPU (`to_device`
     moves them)."""
     if kind not in KINDS:
-        raise NotImplementedError(f"sampler {kind!r} is not ported yet "
-                                  "(the MLT table kind: ROADMAP queue 1, item 8)")
+        # the JAX package's make_sampler names no other kind either: MLT's
+        # TABLE kind is a SamplerConfig that wavefront/mlt.py builds
+        raise NotImplementedError(f"sampler {kind!r} has no name in make_sampler (its "
+                                  f"kinds: {', '.join(KINDS)}); MLT's TABLE kind is "
+                                  "built by wavefront/mlt.py (ROADMAP queue 1, item 8)")
     k = KINDS[kind]
     sobol_v = pmj = None
     if k == SOBOL_GLOBAL:
@@ -79,7 +87,7 @@ def make_sampler(kind: str = "sobol", seed: int = 0, spp: int = 16,
 def to_device(cfg: SamplerConfig, device) -> SamplerConfig:
     """The config with its tables on `device`."""
     mv = lambda t: None if t is None else t.to(device)
-    return cfg._replace(sobol_v=mv(cfg.sobol_v), pmj=mv(cfg.pmj))
+    return cfg._replace(sobol_v=mv(cfg.sobol_v), pmj=mv(cfg.pmj), table=mv(cfg.table))
 
 
 def _pixel_xy(cfg: SamplerConfig, pixel: torch.Tensor):
@@ -110,6 +118,8 @@ def _pmj_bits(cfg: SamplerConfig, sample: torch.Tensor, axis) -> torch.Tensor:
 def get_1d(cfg: SamplerConfig, pixel: torch.Tensor, sample: torch.Tensor,
            dim: int) -> torch.Tensor:
     """One sample dimension in [0,1) as float32."""
+    if cfg.kind == TABLE:
+        return cfg.table[sample.long(), min(max(int(dim), 0), cfg.table.shape[1] - 1)]
     if cfg.kind == INDEPENDENT:
         return rng.hash_float(pixel, sample, dim, cfg.seed)
     if cfg.kind == STRATIFIED:
@@ -145,6 +155,10 @@ def get_1d(cfg: SamplerConfig, pixel: torch.Tensor, sample: torch.Tensor,
 def get_2d(cfg: SamplerConfig, pixel: torch.Tensor, sample: torch.Tensor,
            dim: int) -> tuple[torch.Tensor, torch.Tensor]:
     """A 2D sample in [0,1)^2; consumes dims (dim, dim+1)."""
+    if cfg.kind == TABLE:
+        d = min(max(int(dim), 0), cfg.table.shape[1] - 2)
+        row = sample.long()
+        return cfg.table[row, d], cfg.table[row, d + 1]
     if cfg.kind == INDEPENDENT:
         return (rng.hash_float(pixel, sample, dim, cfg.seed),
                 rng.hash_float(pixel, sample, dim + 1, cfg.seed))

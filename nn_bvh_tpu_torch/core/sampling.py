@@ -1,5 +1,6 @@
-"""Sampling warps and MIS heuristics (port of the parts of
-nn_bvh_tpu/core/sampling.py the bench path uses)."""
+"""Sampling warps, MIS heuristics and piecewise-constant distributions
+(port of the parts of nn_bvh_tpu/core/sampling.py the port's integrators
+and filters use)."""
 
 from __future__ import annotations
 
@@ -128,3 +129,69 @@ def visible_wavelengths_pdf(lam: Tensor) -> Tensor:
     ok = (lam >= 360.0) & (lam <= 830.0)
     x = torch.cosh(0.0072 * (lam - 538.0))
     return torch.where(ok, 0.0039398042 / (x * x), 0.0)
+
+
+# piecewise-constant distributions (sampling.h PiecewiseConstant1D/2D), as
+# dicts of tensors like the JAX package's
+
+def make_distribution_1d(f: Tensor) -> dict:
+    """A 1D piecewise-constant distribution over [0,1]: 'cdf' (n+1,),
+    'func' (n,), 'integral' ()."""
+    f = f.abs()
+    n = f.shape[-1]
+    cdf = torch.cat([torch.zeros(f.shape[:-1] + (1,), dtype=f.dtype, device=f.device),
+                     torch.cumsum(f, -1) / n], -1)
+    integral = cdf[..., -1]
+    cdf = torch.where((integral > 0)[..., None],
+                      cdf / torch.clamp(integral[..., None], min=1e-20),
+                      torch.linspace(0.0, 1.0, n + 1, device=f.device))
+    return {"cdf": cdf, "func": f, "integral": integral}
+
+
+def sample_distribution_1d(dist: dict, u: Tensor):
+    """-> (x in [0,1], pdf, index); the first cdf entry above u
+    (searchsorted right), as the JAX package searches."""
+    cdf, f = dist["cdf"], dist["func"]
+    n = f.shape[-1]
+    idx = torch.clamp(torch.searchsorted(cdf, u.contiguous(), right=True) - 1, 0, n - 1)
+    c0, c1 = cdf[idx], cdf[idx + 1]
+    du = torch.where(c1 > c0, (u - c0) / torch.clamp(c1 - c0, min=1e-20), 0.0)
+    x = (idx.to(torch.float32) + du) / n
+    return x, f[idx] / torch.clamp(dist["integral"], min=1e-20), idx
+
+
+def make_distribution_2d(f: Tensor) -> dict:
+    """A 2D distribution over [0,1]^2 from an (h, w) function: conditional
+    row cdfs and the marginal over the row integrals."""
+    h, w = f.shape
+    f = f.abs()
+    row_int = f.mean(1)
+    cond = torch.cat([torch.zeros(h, 1, dtype=f.dtype, device=f.device),
+                      torch.cumsum(f, 1) / w], 1)
+    cond = cond / torch.clamp(row_int[:, None], min=1e-20)
+    return {"f": f, "cond_cdf": cond, "marg": make_distribution_1d(row_int), "h": h, "w": w}
+
+
+def distribution_to(dist: dict, device) -> dict:
+    """A distribution's tables on `device`."""
+    mv = lambda v: (distribution_to(v, device) if isinstance(v, dict)
+                    else v.to(device) if isinstance(v, Tensor) else v)
+    return {k: mv(v) for k, v in dist.items()}
+
+
+def sample_distribution_2d(dist: dict, u: Tensor):
+    """u (..., 2) -> (point (..., 2) in [0,1]^2, pdf). The row's cdf is
+    searched on the left (the first entry at or above u), as jnp.searchsorted's
+    default side."""
+    w = dist["w"]
+    y, _, iy = sample_distribution_1d(dist["marg"], u[..., 1])
+    cond = dist["cond_cdf"][iy]  # (..., w+1)
+    ux = u[..., 0]
+    ix = torch.clamp(torch.searchsorted(cond.reshape(-1, w + 1), ux.reshape(-1, 1).contiguous())
+                     .reshape(ux.shape) - 1, 0, w - 1)
+    c0 = torch.gather(cond, -1, ix[..., None])[..., 0]
+    c1 = torch.gather(cond, -1, ix[..., None] + 1)[..., 0]
+    du = torch.where(c1 > c0, (ux - c0) / torch.clamp(c1 - c0, min=1e-20), 0.0)
+    x = (ix.to(torch.float32) + du) / w
+    pdf = dist["f"][iy, ix] / torch.clamp(dist["marg"]["integral"], min=1e-20)
+    return torch.stack([x, y], -1), pdf

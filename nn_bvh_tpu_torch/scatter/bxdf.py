@@ -258,6 +258,31 @@ def sample_spec_table(tables, tab_idx, lam):
     return tables[ti, lo] * (1.0 - frac) + tables[ti, lo + 1] * frac
 
 
+def select_ctx(mask, ctx_new: MaterialCtx, ctx_old: MaterialCtx) -> MaterialCtx:
+    """Per-lane select between two MaterialCtx (mask (...,) picks ctx_new).
+    Fields that are not per-lane (shared tables, the static tags) pass
+    through from ctx_new."""
+    def sel(new, old):
+        if new is None or old is None:
+            return new if old is None else old
+        if not isinstance(new, torch.Tensor):
+            return new
+        if new.ndim == mask.ndim + 1 and new.shape[:-1] == mask.shape:
+            return torch.where(mask[..., None], new, old)
+        if new.shape == mask.shape:
+            return torch.where(mask, new, old)
+        return new
+    return MaterialCtx(*(sel(n, o) for n, o in zip(ctx_new, ctx_old)))
+
+
+def zeros_ctx_like(ctx: MaterialCtx) -> MaterialCtx:
+    """A neutral ctx of the same fields (mat_type -1, eta 1, the rest 0)."""
+    z = MaterialCtx(*(torch.zeros_like(v) if isinstance(v, torch.Tensor) else v
+                      for v in ctx))
+    return z._replace(mat_type=torch.full_like(ctx.mat_type, -1), eta=torch.ones_like(ctx.eta),
+                      meas_tab=ctx.meas_tab, lam=ctx.lam)
+
+
 def gather_material(scene, mat_id, lam, mat_all=None, uv=None, u_mix=None,
                     foot_log2=None, kinds=None) -> MaterialCtx:
     """Per-lane material parameters with the base color expanded at the

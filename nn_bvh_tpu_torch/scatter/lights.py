@@ -133,7 +133,9 @@ def _sample_portal(scene, rec, p, u2, lam, emit):
 def _sample_area_tri(scene, rec, p, u2, emit):
     """Area triangle: (wi, dist, pdf, li, front_ok)."""
     tri_idx = rec[..., 8].to(torch.int64)
-    tv = scene.tri_shade[torch.clamp(tri_idx, min=0)][..., 0:9]
+    # clamped into the table as XLA clamps the gather: field 8 of a sphere
+    # light's record is its radius
+    tv = scene.tri_shade[torch.clamp(tri_idx, 0, scene.tri_shade.shape[0] - 1)][..., 0:9]
     v0, v1, v2 = tv[..., 0:3], tv[..., 3:6], tv[..., 6:9]
     bary, pdf_sa, degen = sampling.sample_spherical_triangle(v0, v1, v2, p, u2)
     lp = bary[..., 0:1] * v0 + bary[..., 1:2] * v1 + bary[..., 2:3] * v2

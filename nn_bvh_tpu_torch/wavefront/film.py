@@ -47,6 +47,19 @@ def add_samples(film: Film, pixel_idx: torch.Tensor, L, lam, lam_pdf,
                          weight=film.weight.index_add(0, idx, w))
 
 
+def add_splats(film: Film, pixel_idx: torch.Tensor, L, lam, lam_pdf) -> Film:
+    """Splat spectral samples into arbitrary pixels (AddSplat): their XYZ
+    summed into splat_xyz through index_put with accumulate, which on CUDA
+    sorts the indices before it adds (not index_add's float atomics): two
+    renders of one seed give bit-equal splat films on the card (chip_smoke
+    phase 20's "repeatable"). Its sum order is not the CPU's, so splat
+    films are compared with a tolerance, never bit for bit."""
+    xyz = spectrum.spectrum_to_xyz(L, lam, lam_pdf)
+    xyz = torch.where(torch.isfinite(xyz), xyz, 0.0)
+    return film._replace(splat_xyz=film.splat_xyz.index_put(
+        (pixel_idx.long(),), xyz, accumulate=True))
+
+
 class PixelSensor(NamedTuple):
     xyz_to_rgb: np.ndarray   # (3,3) f32
     imaging_ratio: float

@@ -1,7 +1,11 @@
-"""Wavefront Path integrator (port of the `kind="path"` path of
-nn_bvh_tpu/wavefront/integrator.py) and the dispatch of `make_wave_fn` /
-`render` to it or to VolPath (`kind="volpath" | "simplevolpath"`,
-wavefront/volpath.py).
+"""Wavefront integrators of one 1-spp wave (port of
+nn_bvh_tpu/wavefront/integrator.py): Path (`kind="path"`, mis=False gives
+SimplePath), RandomWalk (`kind="randomwalk"`), ambient occlusion
+(`kind="ao"`, `trace_ao`), the per-pixel stats counters
+(`collect_stats`, `render_pixel_stats`) and the dispatch of `make_wave_fn`
+/ `render` to them or to VolPath (`kind="volpath" | "simplevolpath"`,
+wavefront/volpath.py). LightPath, BDPT, SPPM and MLT have their own
+modules and render functions.
 
 One 1-spp wave traces one path per pixel as a dense batch of lanes; every
 stage (camera rays, intersect, emission, material, shadow rays, BSDF
@@ -9,6 +13,10 @@ sampling, Russian roulette, film) is a batched torch op. Semantics are the
 JAX package's: power-heuristic MIS between light and BSDF sampling
 (mis=False gives SimplePath), Russian roulette after `rr_depth`, the same
 sampler-dimension schedule, so the same seed draws the same numbers.
+`sample_lights=False` drops next-event estimation and weighs every hit
+emitter 1 (RandomWalk and AO, as the JAX CLI sets them); `filt` (a
+filters.FilterConfig) importance-samples the in-pixel position and hands
+the film its weight.
 
 Differences of form, not of result:
 - the JAX while-loop early exit is a Python loop that checks `active.any()`
@@ -20,8 +28,10 @@ Differences of form, not of result:
 - light-sampling branches are computed only for the light tags the scene
   holds (lights.light_types, read once a wave);
 - on every CUDA traversal backend the lane state is re-sorted once per
-  bounce (dead, octant, Morton) before the traversals; `perm` scatters the
-  radiance back to the caller's lane order, so no pixel value depends on it.
+  bounce (dead, octant, Morton) before the traversals; the state carries
+  each lane's pixel and sample index (MLT hands every lane its own), and
+  `perm` scatters the radiance back to the caller's lane order, so no
+  pixel value depends on the sort.
 
 Motion blur, as in the JAX package: a moving camera draws a shutter time
 per lane (one sampler dimension, DIM_PATH_BASE, which moves the bounce
@@ -46,7 +56,7 @@ from ..scatter import bxdf, lights, lightsamplers
 from ..accel import dispatch
 from ..accel.traverse import Hit
 from ..devices import resolve_device
-from . import camera as camera_mod, film as film_mod
+from . import camera as camera_mod, film as film_mod, filters
 
 # sampler dimension layout per pixel sample (the JAX package's schedule)
 DIM_PIXEL = 0       # 2 dims
@@ -57,14 +67,20 @@ DIMS_PER_DEPTH = 7  # [bsdf_uc, bsdf_u, bsdf_v, light_select, light_u, light_v, 
 
 
 VOL_KINDS = ("volpath", "simplevolpath")
+WAVE_KINDS = ("path", "randomwalk", "ao") + VOL_KINDS
+# integrators with a render function of their own, not a wave kind
+RENDERERS = {"lightpath": "lightpath.render_lightpath", "bdpt": "bdpt.render_bdpt",
+             "sppm": "sppm.render_sppm", "mlt": "mlt.render_mlt",
+             "function": "lightpath.render_function"}
+STAT_NAMES = ("bounces", "shadow_rays", "hits", "rr_terms")
 
 
 class IntegratorConfig(NamedTuple):
     max_depth: int = 5
     mis: bool = True              # False = SimplePath semantics
     rr_depth: int = 1             # Russian roulette from this depth on
-    light_sampler: str = "power"  # uniform | power
-    kind: str = "path"            # path | volpath | simplevolpath
+    light_sampler: str = "power"  # uniform | power | bvh | exhaustive
+    kind: str = "path"            # path | randomwalk | ao | volpath | simplevolpath
     max_null_steps: int = 64      # cap on medium events per VolPath segment
     max_shadow_segments: int = 4  # VolPath shadow-ray re-spawns across interfaces
     compact: bool = True          # VolPath on a CUDA backend: the phased wave
@@ -77,6 +93,12 @@ class IntegratorConfig(NamedTuple):
     #   takes part in the dispatch rule, where False selects the whole-wave
     #   trace as compact=False does. JAX's fixed-depth scan for jax.grad has
     #   no counterpart here.
+    sample_lights: bool = True    # next-event estimation (False: RandomWalk, AO)
+    ao_max_dist: float = 1e30     # AO's occlusion distance
+    filt: object = None           # filters.FilterConfig; None = box(0.5) jitter, weight 1
+    collect_stats: bool = False   # trace_wave / trace_wave_vol return an extra
+    #   (R, 4) float32 of per-lane counters [bounces, shadow rays, hits, RR
+    #   terminations] (STAT_NAMES)
 
 
 class ShadingPoint(NamedTuple):
@@ -137,22 +159,65 @@ def _shading_point(scene, hit: Hit, o, d) -> ShadingPoint:
 
 
 def _check_cfg(cfg: IntegratorConfig):
-    if cfg.kind != "path" and cfg.kind not in VOL_KINDS:
-        raise NotImplementedError(f"integrator {cfg.kind!r} is not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
-    if cfg.kind == "path" and not cfg.resort:
+    if cfg.kind in RENDERERS:
+        # the JAX package's make_wave_fn traces Path for such a kind; the
+        # port refuses and names the integrator's own entry point
+        raise ValueError(f"{cfg.kind!r} is not a wave kind: render it with "
+                         f"wavefront.{RENDERERS[cfg.kind]}")
+    if cfg.kind not in WAVE_KINDS:
+        raise ValueError(f"unknown integrator kind {cfg.kind!r} (wave kinds: "
+                         f"{', '.join(WAVE_KINDS)})")
+    if cfg.kind not in VOL_KINDS and not cfg.resort:
         raise NotImplementedError("the Path wave re-sorts its lanes on every CUDA "
                                   "backend; resort=False is VolPath's switch only")
 
 
+class NoGradIntersectors:
+    """Closest-hit and any-hit of `isect` on detached rays under no_grad.
+    Traversal sits outside every differentiated path, as in the JAX
+    package (which stops gradients there and gives no TPU kernel a backward
+    pass): the kernels need no torch.autograd.Function, the hits carry no
+    graph."""
+
+    def __init__(self, isect):
+        self.isect = isect
+
+    def closest(self, o, d, t_max):
+        with torch.no_grad():
+            return self.isect.closest(o.detach(), d.detach(), t_max.detach())
+
+    def any_hit(self, o, d, t_max):
+        with torch.no_grad():
+            return self.isect.any_hit(o.detach(), d.detach(), t_max.detach())
+
+
+def count(st, col: int, mask):
+    """The stats counters st (R, 4) with mask (R,) added to column col."""
+    add = torch.zeros_like(st)
+    add[:, col] = mask.to(st.dtype)
+    return st + add
+
+
+def filter_jitter(cfg: IntegratorConfig, u2):
+    """The in-pixel position of a camera ray and its film weight: u2 and 1
+    without a filter, else the filter's importance sample (0.5 + offset,
+    f / pdf)."""
+    if cfg.filt is None:
+        return u2, torch.ones(u2.shape[:-1], dtype=torch.float32, device=u2.device)
+    off, w = filters.sample(cfg.filt, u2)
+    return 0.5 + off, w
+
+
 def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
                sample_idx, ls_tables=None, isect=None):
-    """Trace one path per entry of pixel_idx -> (L, lam, lam_pdf, film_w).
-    `scene` holds tensors on pixel_idx's device (geometry.scene.to_device).
-    VolPath is volpath.trace_wave_vol."""
+    """Trace one path per entry of pixel_idx -> (L, lam, lam_pdf, film_w),
+    and the (R, 4) stats counters after them when cfg.collect_stats.
+    `sample_idx` is one sample index for the wave or one per lane. `scene`
+    holds tensors on pixel_idx's device (geometry.scene.to_device).
+    VolPath is volpath.trace_wave_vol, AO trace_ao."""
     _check_cfg(cfg)
-    if cfg.kind != "path":
-        raise ValueError(f"trace_wave traces Path, not {cfg.kind!r}")
+    if cfg.kind not in ("path", "randomwalk"):
+        raise ValueError(f"trace_wave traces Path and RandomWalk, not {cfg.kind!r}")
     device = pixel_idx.device
     if ls_tables is None:
         ls_tables = lightsamplers.build(scene, cfg.light_sampler, device)
@@ -162,33 +227,24 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
     sort_blo = scene.bounds[0]
     sort_bext = torch.clamp(scene.bounds[1] - sort_blo, min=1e-9)
 
-    # Traversal sits outside every differentiated path, as in the JAX package
-    # (which stops gradients there and gives no TPU kernel a backward pass):
-    # the kernels need no torch.autograd.Function, the hits carry no graph.
-    def isect_closest(o, d, t_max):
-        with torch.no_grad():
-            return isect.closest(o.detach(), d.detach(), t_max.detach())
-
-    def isect_any(o, d, t_max):
-        with torch.no_grad():
-            return isect.any_hit(o.detach(), d.detach(), t_max.detach())
+    ng = NoGradIntersectors(isect)
+    isect_closest, isect_any = ng.closest, ng.any_hit
 
     R = pixel_idx.shape[0]
-    sidx = torch.as_tensor(sample_idx, dtype=torch.int32, device=device).expand(R)
+    sidx0 = torch.as_tensor(sample_idx, dtype=torch.int32, device=device).expand(R)
     f32 = dict(dtype=torch.float32, device=device)
 
     # camera rays and wavelengths; a moving camera draws a shutter time
     # (a dimension consumed only then, so static scenes keep their streams)
-    upx, upy = samplers.get_2d(sampler_cfg, pixel_idx, sidx, DIM_PIXEL)
-    u_pix = torch.stack([upx, upy], -1)
-    film_w = torch.ones(R, **f32)
-    ulx, uly = samplers.get_2d(sampler_cfg, pixel_idx, sidx, DIM_LENS)
+    upx, upy = samplers.get_2d(sampler_cfg, pixel_idx, sidx0, DIM_PIXEL)
+    u_pix, film_w = filter_jitter(cfg, torch.stack([upx, upy], -1))
+    ulx, uly = samplers.get_2d(sampler_cfg, pixel_idx, sidx0, DIM_LENS)
     animated_cam = cam.motion_keys is not None
-    u_time = (samplers.get_1d(sampler_cfg, pixel_idx, sidx, DIM_PATH_BASE)
+    u_time = (samplers.get_1d(sampler_cfg, pixel_idx, sidx0, DIM_PATH_BASE)
               if animated_cam else None)
     o, d = camera_mod.generate_rays(cam, pixel_idx, u_pix, torch.stack([ulx, uly], -1),
                                     u_time=u_time)
-    ul = samplers.get_1d(sampler_cfg, pixel_idx, sidx, DIM_WAVELENGTH)
+    ul = samplers.get_1d(sampler_cfg, pixel_idx, sidx0, DIM_WAVELENGTH)
     lam, lam_pdf = spectrum.sample_wavelengths_visible(ul)
 
     S = spectrum.N_SPECTRUM_SAMPLES
@@ -201,6 +257,13 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
     # ray-cone state (the texture LOD of gather_material)
     cone_w = torch.zeros(R, **f32)
     cone_s = torch.full((R,), texture.camera_spread(cam.fov, cam.height), **f32)
+    # per-lane stats counters [bounces, shadow rays, hits, RR terminations]
+    st = torch.zeros(R, 4, **f32) if cfg.collect_stats else None
+    nee = cfg.sample_lights
+    # MIS weights of hit emitters: the power heuristic against light
+    # sampling, 1 after a specular bounce; without MIS 0 there, and 1
+    # everywhere when no light is sampled
+    mis_on = cfg.mis and nee
 
     n_lights = scene.n_lights
     mat_all = bxdf.material_records(scene)
@@ -228,6 +291,10 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
                                                                    portal_ids)
         return pdf_l.expand(d.shape[0])
 
+    def no_mis_weight(specular_prev):
+        return torch.where(specular_prev, 1.0, 0.0) if nee else \
+            torch.ones(specular_prev.shape, **f32)
+
     def add_emission(o, d, L, beta, active, specular_prev, prev_pdf, prev_p, lam):
         """Intersect + escaped-ray + emissive-hit contributions."""
         hit = isect_closest(o, d, torch.where(active, 1e30, -1.0))
@@ -235,12 +302,12 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
         if n_lights > 0 and has_escape:
             escaped = active & (hit.prim < 0)
             le_inf = lights.infinite_le(scene, d, lam)
-            if cfg.mis:
+            if mis_on:
                 pdf_l = escape_pdf(prev_p, d)
                 w_mis = torch.where(specular_prev, 1.0,
                                     sampling.power_heuristic(1.0, prev_pdf, 1.0, pdf_l))
             else:
-                w_mis = torch.where(specular_prev, 1.0, 0.0)
+                w_mis = no_mis_weight(specular_prev)
             L = L + torch.where(escaped[..., None], beta * le_inf * w_mis[..., None], 0.0)
 
         sp = _shading_point(scene, hit, o, d)
@@ -249,7 +316,7 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
             lrec = light_all[torch.clamp(sp.light, min=0).long()]
             has_light = found & (sp.light >= 0)
             le = lights.area_light_l_rec(lrec, has_light, sp.ng, wo, lam)
-            if cfg.mis:
+            if mis_on:
                 pdf_shape = lights.area_pdf_li_from_verts(sp.v0, sp.v1, sp.v2, prev_p)
                 is_sph = lrec[..., 0].to(torch.int32) == scene_mod.LIGHT_SPHERE_AREA
                 pdf_shape = torch.where(
@@ -258,7 +325,7 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
                 w_mis = torch.where(specular_prev, 1.0,
                                     sampling.power_heuristic(1.0, prev_pdf, 1.0, pdf_l))
             else:
-                w_mis = torch.where(specular_prev, 1.0, 0.0)
+                w_mis = no_mis_weight(specular_prev)
             L = L + torch.where(found[..., None], beta * le * w_mis[..., None], 0.0)
         return L, found, sp, wo
 
@@ -267,13 +334,15 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
             key = dispatch.ray_sort_key(state[0], state[1], sort_blo, sort_bext,
                                         torch.where(state[4], 1.0, -1.0))
             order = torch.argsort(key, stable=True)
-            state = tuple(a[order] for a in state)
+            state = tuple(None if a is None else a[order] for a in state)
         (o, d, L, beta, active, specular_prev, prev_pdf, prev_p, eta_scale,
-         cone_w, cone_s, pix, lam, perm) = state
+         cone_w, cone_s, pix, sidx, lam, perm, st) = state
         base = DIM_PATH_BASE + (1 if animated_cam else 0) + depth * DIMS_PER_DEPTH
 
         L, found, sp, wo = add_emission(o, d, L, beta, active, specular_prev,
                                         prev_pdf, prev_p, lam)
+        if st is not None:
+            st = count(count(st, 0, active), 2, found)
         active = found
         cone_at_hit = cone_w + sp.t * cone_s
         foot = texture.cone_foot_log2(cone_at_hit, vm.absdot(d, sp.ns), sp.uv_scale)
@@ -292,7 +361,7 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
                 active, pix, sidx, depth)
 
         # direct lighting
-        if n_lights > 0:
+        if nee and n_lights > 0:
             u_sel = samplers.get_1d(sampler_cfg, pix, sidx, base + 3)
             ulu, ulv = samplers.get_2d(sampler_cfg, pix, sidx, base + 4)
             light_id, sel_pmf, _ = lightsamplers.sample_ctx(ls_tables, sp.p, u_sel)
@@ -304,6 +373,8 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
             so = vm.offset_ray_origin(sp.p, vm.face_forward(sp.ng, ls.wi), ls.wi)
             s_tmax = torch.where(want, torch.clamp(ls.dist * 0.999, max=1e30), -1.0)
             occluded = isect_any(so, ls.wi, s_tmax)
+            if st is not None:
+                st = count(st, 1, want)
             pdf_light = ls.pdf * sel_pmf
             if cfg.mis:
                 w_l = torch.where(ls.is_delta, 1.0,
@@ -319,9 +390,19 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
             L = L + beta * f_l_m * w_over[..., None] * li_m
 
         # BSDF sampling -> next segment
-        uc = samplers.get_1d(sampler_cfg, pix, sidx, base + 0)
         ubu, ubv = samplers.get_2d(sampler_cfg, pix, sidx, base + 1)
-        bs = bxdf.sample(ctx, wo_local, uc, torch.stack([ubu, ubv], -1))
+        if cfg.kind == "randomwalk":
+            # RandomWalk: a uniform-sphere direction, f evaluated, pdf 1/4pi
+            wi_rw = sampling.sample_uniform_sphere(torch.stack([ubu, ubv], -1))
+            f_rw, _ = bxdf.evaluate(ctx, wo_local, wi_rw)
+            false = torch.zeros(R, dtype=torch.bool, device=device)
+            bs = bxdf.BSDFSample(wi=wi_rw, f=f_rw,
+                                 pdf=torch.full((R,), sampling.UNIFORM_SPHERE_PDF, **f32),
+                                 specular=false, transmission=false, eta=torch.ones(R, **f32),
+                                 valid=(f_rw > 0).any(-1))
+        else:
+            uc = samplers.get_1d(sampler_cfg, pix, sidx, base + 0)
+            bs = bxdf.sample(ctx, wo_local, uc, torch.stack([ubu, ubv], -1))
         wi_world = vm.from_local(sp.ns, bs.wi)
         cos_b = vm.absdot(wi_world, sp.ns)
         # double-where: an invalid lane's pdf (0, clamped) must not reach the
@@ -347,29 +428,100 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
         if cfg.mis and depth >= cfg.rr_depth:
             u_rr = samplers.get_1d(sampler_cfg, pix, sidx, base + 6)
             q = torch.clamp(1.0 - beta.amax(-1) * eta_scale, min=0.0)
-            active = active & ~(active & (u_rr < q))
+            die = active & (u_rr < q)
+            if st is not None:
+                st = count(st, 3, die)
+            active = active & ~die
             beta = torch.where(active[..., None],
                                beta / torch.clamp(1.0 - q, min=1e-6)[..., None], beta)
 
         return (o, d, L, beta, active, specular_prev, prev_pdf, prev_p, eta_scale,
-                cone_w, cone_s, pix, lam, perm)
+                cone_w, cone_s, pix, sidx, lam, perm, st)
 
     perm0 = torch.arange(R, dtype=torch.int64, device=device)
     state = (o, d, L, beta, active, specular_prev, prev_pdf, o, eta_scale,
-             cone_w, cone_s, pixel_idx, lam, perm0)
+             cone_w, cone_s, pixel_idx, sidx0, lam, perm0, st)
     for depth in range(cfg.max_depth):
         if not bool(state[4].any()):
             break
         state = bounce(depth, state)
-    (o, d, L, beta, active, specular_prev, prev_pdf, prev_p, _, _, _, _,
-     lam_f, perm) = state
+    (o, d, L, beta, active, specular_prev, prev_pdf, prev_p, _, _, _, _, _,
+     lam_f, perm, st) = state
     # trailing emission-only segment (the depth == max_depth break)
     if bool(active.any()):
         L, _, _, _ = add_emission(o, d, L, beta, active, specular_prev, prev_pdf,
                                   prev_p, lam_f)
     L_out = torch.zeros_like(L)
     L_out[perm] = L  # back to the caller's lane order
-    return L_out, lam, lam_pdf, film_w
+    if st is None:
+        return L_out, lam, lam_pdf, film_w
+    st_out = torch.zeros_like(st)
+    st_out[perm] = st
+    return L_out, lam, lam_pdf, film_w, st_out
+
+
+def trace_ao(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx, sample_idx,
+             isect=None):
+    """Ambient occlusion (AOIntegrator): a cosine-sampled visibility ray
+    within cfg.ao_max_dist from the first hit -> (L, lam, lam_pdf, film_w),
+    L a flat unit spectrum where the ray escapes, 0 where it is occluded or
+    the camera ray misses."""
+    device = pixel_idx.device
+    if isect is None:
+        isect = dispatch.make_intersectors(scene, dbvh, device)
+    R = pixel_idx.shape[0]
+    sidx = torch.as_tensor(sample_idx, dtype=torch.int32, device=device).expand(R)
+    upx, upy = samplers.get_2d(sampler_cfg, pixel_idx, sidx, DIM_PIXEL)
+    u_pix, film_w = filter_jitter(cfg, torch.stack([upx, upy], -1))
+    ulx, uly = samplers.get_2d(sampler_cfg, pixel_idx, sidx, DIM_LENS)
+    animated_cam = cam.motion_keys is not None
+    u_time = (samplers.get_1d(sampler_cfg, pixel_idx, sidx, DIM_PATH_BASE)
+              if animated_cam else None)
+    o, d = camera_mod.generate_rays(cam, pixel_idx, u_pix, torch.stack([ulx, uly], -1),
+                                    u_time=u_time)
+    ul = samplers.get_1d(sampler_cfg, pixel_idx, sidx, DIM_WAVELENGTH)
+    lam, lam_pdf = spectrum.sample_wavelengths_visible(ul)
+    ng = NoGradIntersectors(isect)
+    hit = ng.closest(o, d, torch.full((R,), 1e30, dtype=torch.float32, device=device))
+    found = hit.prim >= 0
+    sp = _shading_point(scene, hit, o, d)
+    ns = vm.face_forward(sp.ns, -d)
+    u1, u2 = samplers.get_2d(sampler_cfg, pixel_idx, sidx, DIM_PATH_BASE)
+    wi = vm.from_local(ns, sampling.sample_cosine_hemisphere(torch.stack([u1, u2], -1)))
+    so = vm.offset_ray_origin(sp.p, vm.face_forward(sp.ng, wi), wi)
+    occ = ng.any_hit(so, wi, torch.where(found, cfg.ao_max_dist, -1.0))
+    vis = found & ~occ
+    L = torch.where(vis[..., None], 1.0,
+                    torch.zeros(R, spectrum.N_SPECTRUM_SAMPLES, dtype=torch.float32,
+                                device=device))
+    return L, lam, lam_pdf, film_w
+
+
+def render_pixel_stats(scene, dbvh, cam, spp: int = 4, sampler: str = "sobol", seed: int = 0,
+                       cfg: IntegratorConfig = IntegratorConfig(), device=None):
+    """Per-pixel statistics images (--pixelstats): {"bounces",
+    "shadow_rays", "hits", "rr_terms"} as (H, W) float32 numpy arrays
+    averaged over spp, and {"stats/<name>": total} over all spp. As in the
+    JAX package the counters come from the Path wave (RandomWalk's for
+    kind="randomwalk") whatever the configured kind."""
+    device = resolve_device(device, scene)
+    cfg = cfg._replace(collect_stats=True,
+                       kind="randomwalk" if cfg.kind == "randomwalk" else "path", resort=True)
+    sampler_cfg = samplers.to_device(
+        samplers.make_sampler(sampler, seed=seed, spp=spp, width=cam.width), device)
+    cfg = cfg._replace(filt=filters.to_device(cfg.filt, device))
+    R = cam.width * cam.height
+    pixel_idx = torch.arange(R, dtype=torch.int32, device=device)
+    ls = lightsamplers.build(scene, cfg.light_sampler, device)
+    isect = dispatch.make_intersectors(scene, dbvh, device)
+    scene_d = scene_mod.to_device(scene, device)
+    acc = torch.zeros(R, 4, dtype=torch.float32, device=device)
+    for s in range(spp):
+        acc = acc + trace_wave(scene_d, None, cam, sampler_cfg, cfg, pixel_idx, s, ls, isect)[4]
+    a = (acc / spp).cpu().numpy()
+    imgs = {n: a[:, i].reshape(cam.height, cam.width) for i, n in enumerate(STAT_NAMES)}
+    totals = {f"stats/{n}": float(a[:, i].sum() * spp) for i, n in enumerate(STAT_NAMES)}
+    return imgs, totals
 
 
 def make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig,
@@ -394,6 +546,7 @@ def make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig,
         isect = dispatch.make_intersectors(scene, dbvh, device, sort=not cfg.resort)
     animated = scene.tri_p_end is not None
     sampler_cfg = samplers.to_device(sampler_cfg, device)
+    cfg = cfg._replace(filt=filters.to_device(cfg.filt, device))
     if (cfg.kind in VOL_KINDS and cfg.compact and cfg.early_exit
             and isect.backend in dispatch.CUDA_BACKENDS and not animated):
         return volpath.make_phased_wave(scene, dbvh, cam, sampler_cfg, cfg, isect=isect,
@@ -401,15 +554,20 @@ def make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig,
     ls_tables = lightsamplers.build(scene, cfg.light_sampler, device)
     scene_d = scene_mod.to_device(scene, device)
     pixel_idx = torch.arange(cam.width * cam.height, dtype=torch.int32, device=device)
-    trace = volpath.trace_wave_vol if cfg.kind in VOL_KINDS else trace_wave
+
+    def trace(sc, sample_idx):
+        if cfg.kind == "ao":
+            return trace_ao(sc, None, cam, sampler_cfg, cfg, pixel_idx, sample_idx, isect)
+        tw = volpath.trace_wave_vol if cfg.kind in VOL_KINDS else trace_wave
+        return tw(sc, None, cam, sampler_cfg, cfg, pixel_idx, sample_idx, ls_tables,
+                  isect)[:4]
 
     def wave(film: film_mod.Film, sample_idx) -> film_mod.Film:
         sc = scene_d
         if animated:
             sc = scene_at_shutter(scene_d, sample_idx, sampler_cfg.spp)
             isect.set_triangles(sc.tri_p)
-        L, lam, lam_pdf, fw = trace(sc, None, cam, sampler_cfg, cfg,
-                                    pixel_idx, sample_idx, ls_tables, isect)
+        L, lam, lam_pdf, fw = trace(sc, sample_idx)
         return film_mod.add_samples(film, pixel_idx, L, lam, lam_pdf,
                                     filter_weight=fw, sequential=True)
 

@@ -53,7 +53,8 @@ from ..geometry import scene as scene_mod, texture
 from ..scatter import bxdf, lights, lightsamplers, media
 from . import camera as camera_mod, film as film_mod
 from .integrator import (DIM_PIXEL, DIM_WAVELENGTH, DIM_LENS, DIM_PATH_BASE,
-                         DIMS_PER_DEPTH, IntegratorConfig, _shading_point)
+                         DIMS_PER_DEPTH, IntegratorConfig, _shading_point, count,
+                         filter_jitter)
 
 S = spectrum.N_SPECTRUM_SAMPLES
 
@@ -67,8 +68,7 @@ def _any_pos(x):
 
 
 class VolState(NamedTuple):
-    """Per-lane state of one VolPath wave (the JAX package's carry tuple,
-    without the stats counters)."""
+    """Per-lane state of one VolPath wave (the JAX package's carry tuple)."""
 
     o: torch.Tensor              # (R, 3)
     d: torch.Tensor              # (R, 3)
@@ -89,6 +89,12 @@ class VolState(NamedTuple):
     sidx: torch.Tensor           # (R,) i32 sample index
     film_w: torch.Tensor         # (R,) filter weight
     lam_pdf: torch.Tensor        # (R, 4)
+    st: torch.Tensor | None      # (R, 4) stats counters (cfg.collect_stats), else None
+
+
+def _take(state: VolState, idx) -> VolState:
+    """The lanes idx (an index tensor or a slice) of every field."""
+    return VolState(*(None if a is None else a[idx] for a in state))
 
 
 class VolCtx(NamedTuple):
@@ -162,9 +168,9 @@ def init_state(ctx: VolCtx, pixel_idx, sample_idx) -> VolState:
     f32 = dict(dtype=torch.float32, device=device)
     sidx = torch.as_tensor(sample_idx, dtype=torch.int32, device=device).expand(R)
     upx, upy = samplers.get_2d(scfg, pixel_idx, sidx, DIM_PIXEL)
+    u_pix, film_w = filter_jitter(ctx.cfg, torch.stack([upx, upy], -1))
     ulx, uly = samplers.get_2d(scfg, pixel_idx, sidx, DIM_LENS)
-    o, d = camera_mod.generate_rays(cam, pixel_idx, torch.stack([upx, upy], -1),
-                                    torch.stack([ulx, uly], -1))
+    o, d = camera_mod.generate_rays(cam, pixel_idx, u_pix, torch.stack([ulx, uly], -1))
     ul = samplers.get_1d(scfg, pixel_idx, sidx, DIM_WAVELENGTH)
     lam, lam_pdf = spectrum.sample_wavelengths_visible(ul)
     ones = torch.ones(R, S, **f32)
@@ -176,7 +182,8 @@ def init_state(ctx: VolCtx, pixel_idx, sample_idx) -> VolState:
         eta_scale=torch.ones(R, **f32), cone_w=torch.zeros(R, **f32),
         cone_s=torch.full((R,), texture.camera_spread(cam.fov, cam.height), **f32),
         pixel_idx=pixel_idx, lam=lam, perm=torch.arange(R, device=device), sidx=sidx,
-        film_w=torch.ones(R, **f32), lam_pdf=lam_pdf)
+        film_w=film_w, lam_pdf=lam_pdf,
+        st=torch.zeros(R, 4, **f32) if ctx.cfg.collect_stats else None)
 
 
 def medium_events(ctx: VolCtx, depth: int, o, d, t_hit, cur_med, beta, r_u, r_l, L, run0,
@@ -464,15 +471,16 @@ def bounce(ctx: VolCtx, depth: int, state: VolState, allow_scatter: bool = True)
         # every traversal of the bounce; perm tracks the caller's lanes
         key = dispatch.ray_sort_key(state.o.detach(), state.d.detach(), ctx.sort_blo,
                                     ctx.sort_bext, torch.where(state.active, 1.0, -1.0))
-        order = torch.argsort(key, stable=True)
-        state = VolState(*(a[order] for a in state))
+        state = _take(state, torch.argsort(key, stable=True))
     (o, d, L, beta, r_u, r_l, active, specular_prev, prev_p, cur_med, eta_scale, cone_w,
-     cone_s, pix, lam, perm, sidx, film_w, lam_pdf) = state
+     cone_s, pix, lam, perm, sidx, film_w, lam_pdf, st) = state
     R = o.shape[0]
 
     hit = _closest(ctx, o, d, torch.where(active, 1e30, -1.0))
     found = active & (hit.prim >= 0)
     t_hit = torch.where(found, hit.t, torch.inf)
+    if st is not None:
+        st = count(count(st, 0, active), 2, found)
 
     # medium segment sampling
     if has_media:
@@ -489,7 +497,7 @@ def bounce(ctx: VolCtx, depth: int, state: VolState, allow_scatter: bool = True)
     L = add_emission(ctx, depth, o, d, L, beta, r_u, r_l, active & ~scattered, specular_prev,
                      prev_p, sp, surf_found, lam)
     if not allow_scatter:
-        return state._replace(L=L, beta=beta, r_u=r_u, r_l=r_l, active=active)
+        return state._replace(L=L, beta=beta, r_u=r_u, r_l=r_l, active=active, st=st)
 
     wo = -d
     cone_at_hit = cone_w + sp.t * cone_s
@@ -503,12 +511,14 @@ def bounce(ctx: VolCtx, depth: int, state: VolState, allow_scatter: bool = True)
              else torch.zeros(R, dtype=torch.float32, device=o.device))
 
     # NEE (shared surface / medium SampleLd)
-    if scene.n_lights > 0:
+    if cfg.sample_lights and scene.n_lights > 0:
         p_ref = torch.where(scattered[..., None], p_scat, sp.p)
         ns_ld = torch.where(scattered[..., None], torch.tensor([0.0, 0.0, 1.0], device=o.device),
                             sp.ns)
         L = sample_ld(ctx, depth, p_ref, ns_ld, wo, ctx_mat, scattered, g_med, cur_med,
                       surf_lane | scattered, beta, r_u, L, pix, sidx, lam)
+        if st is not None:
+            st = count(st, 1, surf_lane | scattered)
 
     # surface lanes: BSDF sample
     base = DIM_PATH_BASE + depth * DIMS_PER_DEPTH
@@ -567,18 +577,22 @@ def bounce(ctx: VolCtx, depth: int, state: VolState, allow_scatter: bool = True)
         u_rr = samplers.get_1d(scfg, pix, sidx, base + 6)
         rr = beta.amax(-1) * eta_scale / torch.clamp(_avg(r_u), min=1e-30)
         q = torch.clamp(1.0 - rr, min=0.0)
-        active = active & ~(active & (u_rr < q))
+        die = active & (u_rr < q)
+        if st is not None:
+            st = count(st, 3, die)
+        active = active & ~die
         beta = torch.where(active[..., None],
                            beta / torch.clamp(1.0 - q, min=1e-6)[..., None], beta)
 
     return VolState(o, d, L, beta, r_u, r_l, active, specular_prev, prev_p, cur_med,
-                    eta_scale, cone_w, cone_s, pix, lam, perm, sidx, film_w, lam_pdf)
+                    eta_scale, cone_w, cone_s, pix, lam, perm, sidx, film_w, lam_pdf, st)
 
 
 def trace_wave_vol(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
                    sample_idx, ls_tables=None, isect=None):
     """VolPath: one volumetric path per entry of pixel_idx -> (L, lam,
-    lam_pdf, film_w). `scene` holds tensors on pixel_idx's device."""
+    lam_pdf, film_w), and the (R, 4) stats counters after them when
+    cfg.collect_stats. `scene` holds tensors on pixel_idx's device."""
     if isect is None:
         isect = dispatch.make_intersectors(scene, dbvh, pixel_idx.device, sort=not cfg.resort)
     ctx = make_context(scene, cam, sampler_cfg, cfg, ls_tables, isect)
@@ -593,7 +607,11 @@ def trace_wave_vol(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_i
         state = bounce(ctx, cfg.max_depth, state, allow_scatter=False)
     L = torch.zeros_like(state.L)
     L[state.perm] = state.L  # back to the caller's lane order
-    return L, lam, lam_pdf, film_w
+    if state.st is None:
+        return L, lam, lam_pdf, film_w
+    st = torch.zeros_like(state.st)
+    st[state.perm] = state.st
+    return L, lam, lam_pdf, film_w, st
 
 
 # ---------------------------------------------------------------------------
@@ -626,7 +644,9 @@ def make_phased_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, isect
     every live lane (`ladder`, 25% headroom) add their radiance to the film
     and are cut away. In torch a ladder size is only a slice length.
     Returns wave(film, sample_idx) -> film; after a call, `wave.phases`
-    lists (depth reached, lanes run, live lanes) per phase."""
+    lists (depth reached, lanes run, live lanes) per phase, and with
+    cfg.collect_stats `wave.stats` holds the wave's (R, 4) counters by
+    pixel."""
     if isect is not None and device is None:
         device = isect.device
     device = resolve_device(device, scene)
@@ -642,6 +662,8 @@ def make_phased_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, isect
         # pixels are unique within a wave (the padding lanes alias pixel 0
         # with weight 0 and radiance 0), so the order of index_add's float
         # adds cannot change a pixel's sum
+        if st.st is not None:  # a padding lane's counters are 0
+            wave.stats.index_add_(0, st.pixel_idx.long(), st.st)
         return film_mod.add_samples(film, st.pixel_idx, st.L, st.lam, st.lam_pdf,
                                     filter_weight=st.film_w, sequential=False)
 
@@ -649,6 +671,8 @@ def make_phased_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, isect
         pix = torch.arange(sizes[0], dtype=torch.int32, device=device)
         live_pix = pix < R
         state = init_state(ctx, torch.where(live_pix, pix, 0), sample_idx)
+        if cfg.collect_stats:
+            wave.stats = torch.zeros(R, 4, dtype=torch.float32, device=device)
         if sizes[0] > R:  # padding lanes: dead, zero film weight
             state = state._replace(active=state.active & live_pix,
                                    film_w=torch.where(live_pix, state.film_w, 0.0))
@@ -659,8 +683,7 @@ def make_phased_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, isect
                 state = bounce(ctx, depth, state)
                 depth += 1
             # dead lanes last, live lanes in their order (stable)
-            order = torch.argsort((~state.active).to(torch.int32), stable=True)
-            state = VolState(*(a[order] for a in state))
+            state = _take(state, torch.argsort((~state.active).to(torch.int32), stable=True))
             live = int(state.active.sum())
             phases.append((depth, sizes[k], live))
             if live == 0 or depth >= cfg.max_depth:
@@ -671,12 +694,13 @@ def make_phased_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, isect
                 k += 1
             if k > k0:
                 n = sizes[k]
-                film = film_add(film, VolState(*(a[n:] for a in state)))
-                state = VolState(*(a[:n] for a in state))
+                film = film_add(film, _take(state, slice(n, None)))
+                state = _take(state, slice(None, n))
         if bool(state.active.any()):
             state = bounce(ctx, cfg.max_depth, state, allow_scatter=False)
         wave.phases = phases
         return film_add(film, state)
 
     wave.phases = []
+    wave.stats = None
     return wave

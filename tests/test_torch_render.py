@@ -191,11 +191,17 @@ def test_host_scene_defaults_to_cuda(monkeypatch):
 
 
 def test_unported_integrators_raise(setup):
+    """The integrators with render functions of their own are not wave
+    kinds: where the JAX package's make_wave_fn traces Path for kind="bdpt",
+    the port refuses and names the entry point; an unknown kind is refused."""
     _, _, _, tsc, tbvh, tcam = setup
     scfg = samplers.make_sampler("sobol", seed=0, spp=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        integrator.make_wave_fn(tsc, tbvh, tcam, scfg,
-                                integrator.IntegratorConfig(kind="bdpt"))
+    for kind, entry in (("bdpt", "bdpt.render_bdpt"), ("lightpath", "lightpath.render_lightpath"),
+                        ("sppm", "sppm.render_sppm"), ("mlt", "mlt.render_mlt")):
+        with pytest.raises(ValueError, match=entry):
+            integrator.make_wave_fn(tsc, tbvh, tcam, scfg, integrator.IntegratorConfig(kind=kind))
+    with pytest.raises(ValueError, match="unknown integrator kind"):
+        integrator.make_wave_fn(tsc, tbvh, tcam, scfg, integrator.IntegratorConfig(kind="gbuffer"))
 
 
 def test_port_imports_no_jax():
@@ -208,7 +214,8 @@ def test_port_imports_no_jax():
             "for m in ('geometry.quadrics', 'geometry.animated', 'scatter.portal',\n"
             "          'scatter.lights', 'scatter.lightsamplers', 'core.lowdiscrepancy',\n"
             "          'learn.splitter', 'learn.treenet', 'learn.joint', 'cli.train',\n"
-            "          'cli.tree_bench'):\n"
+            "          'cli.tree_bench', 'wavefront.filters', 'wavefront.lightpath',\n"
+            "          'wavefront.bdpt', 'wavefront.sppm', 'wavefront.mlt'):\n"
             "    assert 'nn_bvh_tpu_torch.' + m in sys.modules, m\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -6,8 +6,11 @@ JAX CLI's settings, within tests/test_torch_render.py's thresholds (image
 mean within 0.5%, >= 99% of pixels within atol 1e-3 + rtol 1e-2). Both
 packages build the same tables and BVH from the file (the native builder).
 Also: the written EXR, PFM and PNG read back, the port's EXR reader on the
-repository's golden EXRs, the flags that are not ported yet, and the CLI
-with JAX blocked. One JAX Path wave is compiled (16x16, 2 spp, depth 2)."""
+repository's golden EXRs, every other integrator (randomwalk, ao,
+lightpath, bdpt, mlt) and --pixelstats through the CLI (finite images and
+PNGs that read back; sppm renders as Path), the flags that are not ported
+yet, and the CLI with JAX blocked. One JAX Path wave is compiled (16x16, 2
+spp, depth 2)."""
 
 import json
 import os
@@ -161,8 +164,10 @@ def test_stats_partial_images_and_mse(scene_file, tmp_path, capsys):
                        "--write-partial-images"])
     assert img.shape == (12, 16, 3)  # the film's 64x48 at a quarter
     stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    for key in ("parse_s", "atlas_pack_s", "bvh_s", "render_s", "rays_per_s", "atlas_mib"):
+    for key in ("parse_s", "atlas_pack_s", "bvh_s", "render_s", "rays_per_s", "atlas_mib",
+                "rays_live_per_s"):
         assert stats[key] >= 0, key
+    assert 1.0 <= stats["dist_avg_path_length"] <= 2.0  # depth 1: a camera segment and one more
     assert stats["spp"] == 1 and stats["tris"] > 100
     assert os.path.exists(str(out) + ".partial.pfm")
     image.write_pfm(str(ref), img)
@@ -173,13 +178,39 @@ def test_stats_partial_images_and_mse(scene_file, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--sharded"], "item 7"), (["--pixelstats", "p"], "item 8"),
-    (["--display-server", "localhost:14158"], "item 5"), (["--integrator", "bdpt"], "item 8"),
-    (["--integrator", "mlt"], "item 8"), (["--integrator", "lightpath"], "item 8"),
-    (["--integrator", "randomwalk"], "item 8"), (["--integrator", "ao"], "item 8")])
+    (["--sharded"], "item 7"), (["--display-server", "localhost:14158"], "item 5")])
 def test_unported_flags_raise(scene_file, tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         cli(scene_file, tmp_path / "x.exr", *flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--pixelstats", "PREFIX"], ["--integrator", "bdpt"], ["--integrator", "mlt"],
+    ["--integrator", "lightpath"], ["--integrator", "randomwalk"], ["--integrator", "ao"]],
+    ids=["pixelstats", "bdpt", "mlt", "lightpath", "randomwalk", "ao"])
+def test_other_integrators_and_pixelstats_render(scene_file, tmp_path, capsys, flags):
+    """Each integrator the JAX CLI renders besides Path and VolPath, and
+    --pixelstats, through the port's CLI on the CPU: a finite image with
+    light in it, written and read back; --pixelstats' four PNGs read back
+    and its totals line counts bounces."""
+    flags = [f.replace("PREFIX", str(tmp_path / "ps")) for f in flags]
+    out = tmp_path / "x.exr"
+    img = cli(scene_file, out, *flags)
+    assert img.shape == (H, W, 3) and np.isfinite(img).all() and img.mean() > 0
+    np.testing.assert_array_equal(image.read_exr(str(out)), img)
+    if flags[0] == "--pixelstats":
+        totals = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert totals["stats/bounces"] >= W * H * 2 and totals["stats/shadow_rays"] > 0
+        for name in ("bounces", "shadow_rays", "hits", "rr_terms"):
+            png = image.read_png(str(tmp_path / f"ps-{name}.png"))
+            assert png.shape == (H, W, 3) and np.isfinite(png).all()
+        assert image.read_png(str(tmp_path / "ps-bounces.png")).max() == 1.0
+
+
+def test_sppm_renders_as_path(scene_file, tmp_path):
+    """As in the JAX CLI, an sppm (or function) scene renders as Path."""
+    np.testing.assert_array_equal(cli(scene_file, tmp_path / "s.exr", "--integrator", "sppm"),
+                                  cli(scene_file, tmp_path / "p.exr", "--integrator", "path"))
 
 
 def test_runs_on_the_card_by_default(scene_file, tmp_path, monkeypatch):
