@@ -220,6 +220,31 @@ points, once per traversal backend, and checks it:
    `--integrator bdpt --spp 1 --stats` (the EXR read back bit-equal, the
    stats JSON's dist_avg_path_length) and with `--pixelstats` (four PNGs
    read back). Its launches count in bvh4_traverse's.
+21. the film surface, the cameras and the image tools on the bench
+   configuration (400x400, depth 4, Sobol, power light sampler) through
+   cuda_bvh4: 21.1 one Path wave per camera (orthographic, equirect and
+   equal-area spherical, realistic with the built-in lens focused at 1,000
+   mm) through phase 17's scene_waves (ms a wave, launches = traversal
+   calls, the plain traversal's film by phase 5's rule, every batch held
+   against the plain traversal); for the realistic camera the vignetted
+   lanes of sample 0 (sent from (0, 0, -1e9) along +z) counted and their
+   camera batch held against the plain traversal apart from the other
+   lanes (phase 3's contract); 21.2 a measured sensor (canon_eos_5d_mkiv,
+   white balance 5000 K) through make_wave_fn (Path) and the phased wave
+   (VolPath), and a 3000 K white-balanced PixelSensor developing the same
+   kinds' films: each image finite with mean > 0 and the plain traversal's
+   by phase 5's rule; 21.3 one wave's (L, lambda, pdf) into a SpectralFilm
+   on the card, sequentially and by scatter, equal to the CPU's on the same
+   inputs (1e-5); 21.4 render_gbuffer at 400x400, its camera batch held
+   against the plain traversal and every AOV equal to the plain
+   traversal's but on tie lanes, then `imgtool denoise` of a 1-spp bench
+   image guided by its normal and albedo; 21.5 cli.render on phase 19's
+   pbrt file with a measured sensor and a white balance added and
+   --display-server pointed at a TCP listener of this script (one update
+   per channel a wave); 21.6 tools/determinism (256x256, 4 spp, two fresh
+   wave functions: bit-identical); 21.7 pspec.power_spectrum on the card
+   against the CPU (rtol 1e-4 + atol 1e-4 x mean P). Its launches count in
+   bvh4_traverse's.
 
 Any failure raises (exit code != 0). The last two lines of standard output
 are a JSON record of the kernels and {"ok": true, "device": {...}}.
@@ -1029,7 +1054,7 @@ def median_wave_ms(torch, wave, film, first: int, n: int = 3):
 
 
 def scene_waves(torch, phase, scenes: dict, cam, cfg, scfg, dev, rounds: int = 3,
-                profile: bool = True, check_batches: bool = False) -> dict:
+                profile: bool = True, check_batches: bool = False, sensor=None) -> dict:
     """Scenes ({label: (host scene, DeviceBVH)}) through make_wave_fn on
     cuda_bvh4: a warm-up wave each (none when rounds is 1), then `rounds`
     rounds of one wave of each scene in turn, each wave between its own CUDA
@@ -1040,8 +1065,9 @@ def scene_waves(torch, phase, scenes: dict, cam, cfg, scfg, dev, rounds: int = 3
     batch of the kernel is also held against the plain traversal on the
     same batch (bench_scene.CheckedIntersectors). Reads the median ms, CUDA
     kernels and copies a wave (torch.profiler, with profile) and a wave's
-    peak memory -> {label: dict(xyz=film XYZ of sample 0, ms=median ms,
-    kernels=, launches=bvh4_traverse launches of the timed waves)}."""
+    peak memory. `sensor` goes to make_wave_fn and develop -> {label:
+    dict(xyz=film XYZ of sample 0, ms=median ms, kernels=, launches=
+    bvh4_traverse launches of the timed waves, mean=image mean)}."""
     from nn_bvh_tpu_torch.accel import dispatch
     from nn_bvh_tpu_torch.tools import bench_scene
     from nn_bvh_tpu_torch.wavefront import film as film_mod, integrator
@@ -1052,7 +1078,7 @@ def scene_waves(torch, phase, scenes: dict, cam, cfg, scfg, dev, rounds: int = 3
     for label, (sc, dbvh) in scenes.items():
         isect = dispatch.make_intersectors(sc, dbvh, dev)
         check(isect.backend == "cuda_bvh4", f"CUDA picked {isect.backend}")
-        wave = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=isect)
+        wave = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=isect, sensor=sensor)
         film = make_film()
         if rounds > 1:
             film = wave(film, 0)  # warm-up
@@ -1077,15 +1103,17 @@ def scene_waves(torch, phase, scenes: dict, cam, cfg, scfg, dev, rounds: int = 3
     out = {}
     for label, run in runs.items():
         sc, dbvh, isect = run["sc"], run["dbvh"], run["isect"]
-        img = film_mod.develop(run["film"])
+        img = film_mod.develop(run["film"], sensor=sensor)
         mean = float(img.mean())
         check(bool(torch.isfinite(img).all()) and mean > 0, f"{label}: bad image, mean {mean}")
         n_k = (cuda_kernel_count(torch, lambda: run["wave"](run["film"], rounds + 1))
                if profile else None)
         plain = dispatch.make_intersectors(sc, dbvh, dev, backend="plain")
         k_isect = bench_scene.CheckedIntersectors(isect, plain, label) if check_batches else isect
-        f_k = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=k_isect)(make_film(), 0)
-        f_p = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=plain)(make_film(), 0)
+        f_k = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=k_isect,
+                                      sensor=sensor)(make_film(), 0)
+        f_p = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=plain,
+                                      sensor=sensor)(make_film(), 0)
         close, rel = film_agreement(f_k.xyz, f_p.xyz)
         check(close >= 0.995 and rel <= 1e-3, f"{label}: film agrees with the plain traversal "
               f"on {close:.5f} of pixels, mean rel diff {rel:.3g}")
@@ -1104,7 +1132,8 @@ def scene_waves(torch, phase, scenes: dict, cam, cfg, scfg, dev, rounds: int = 3
               f"mean {mean:.6f}; the same seed through the plain traversal: film XYZ agrees on "
               f"{close:.6f} of pixels, mean rel diff {rel:.3g}{extra} "
               f"[{time.perf_counter() - t0:.0f} s]", flush=True)
-        out[label] = dict(xyz=f_k.xyz, ms=ms, kernels=n_k, launches=run["launches"])
+        out[label] = dict(xyz=f_k.xyz, ms=ms, kernels=n_k, launches=run["launches"],
+                          mean=mean, film_k=f_k, film_p=f_p)
     return out
 
 
@@ -1702,6 +1731,267 @@ def phase_integrators(torch, sc, dbvh, cam, dev, ref_xyz, bench_pbrt: str) -> in
     return total
 
 
+class Listener:
+    """A TCP listener on localhost that records every byte it receives on
+    one connection (the tev viewer's side of cli.render --display-server)."""
+
+    def __init__(self):
+        import socket
+        import threading
+
+        self.srv = socket.create_server(("127.0.0.1", 0))
+        self.port = self.srv.getsockname()[1]
+        self.data = bytearray()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        conn, _ = self.srv.accept()
+        with conn:
+            while chunk := conn.recv(1 << 20):
+                self.data += chunk
+
+    def packets(self) -> list:
+        """The packets received once the client has closed: [(type byte,
+        body)] (each packet a little-endian uint32 length with itself
+        counted, then its type byte)."""
+        import struct
+
+        self.thread.join(timeout=60)
+        self.srv.close()
+        check(not self.thread.is_alive(), "the display client did not close its socket")
+        out, i = [], 0
+        while i < len(self.data):
+            n = struct.unpack_from("<I", self.data, i)[0]
+            out.append((self.data[i + 4], bytes(self.data[i + 5:i + n])))
+            i += n
+        check(i == len(self.data), "a display packet is cut short")
+        return out
+
+
+def phase_film_cameras(torch, sc, dbvh, cam, dev, ref_xyz, bench_pbrt: str) -> int:
+    """Phase 21: the cameras, sensors, spectral film, G-buffer and image
+    tools on the bench configuration through cuda_bvh4 (see the module doc)
+    -> bvh4_traverse launches of its main path."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    from nn_bvh_tpu_torch.accel import dispatch
+    from nn_bvh_tpu_torch.cli import imgtool, pspec, render
+    from nn_bvh_tpu_torch.core import colorspace, samplers
+    from nn_bvh_tpu_torch.geometry import scene as scene_mod
+    from nn_bvh_tpu_torch.scatter import lightsamplers
+    from nn_bvh_tpu_torch.tools import bench_scene, determinism
+    from nn_bvh_tpu_torch.utils import image
+    from nn_bvh_tpu_torch.wavefront import camera as camera_mod, film as film_mod, integrator
+
+    t0 = time.perf_counter()
+    secs = lambda: f"[{time.perf_counter() - t0:.0f} s]"
+    cfg, scfg = bench_scene.bench_config()
+    W, H = cam.width, cam.height
+    R = W * H
+    total = 0
+    m = cam.cam_to_world
+    cams = {"orthographic": camera_mod.make_orthographic(m, 4.0, W, H),
+            "equirect": camera_mod.make_spherical(m, W, H, "equirect"),
+            "equalarea": camera_mod.make_spherical(m, W, H, "equalarea"),
+            "realistic": camera_mod.make_realistic(m, W, H, focus_distance=1000.0)}
+    for name, c in cams.items():
+        label = f"21.1 {name} camera"
+        total += scene_waves(torch, "21.1", {label: (sc, dbvh)}, c, cfg, scfg, dev,
+                             profile=False, check_batches=True)[label]["launches"]
+
+    # the realistic camera's vignetted lanes of sample 0, held apart
+    pix = torch.arange(R, dtype=torch.int32, device=dev)
+    sid = torch.zeros(R, dtype=torch.int32, device=dev)
+    scfg_d = samplers.to_device(scfg, dev)
+    u_pix = torch.stack(samplers.get_2d(scfg_d, pix, sid, integrator.DIM_PIXEL), -1)
+    u_lens = torch.stack(samplers.get_2d(scfg_d, pix, sid, integrator.DIM_LENS), -1)
+    o, d = camera_mod.generate_rays(cams["realistic"], pix, u_pix, u_lens)
+    vig = o.abs().amax(-1) > 1e6
+    k_isect = dispatch.make_intersectors(sc, dbvh, dev)
+    p_isect = dispatch.make_intersectors(sc, dbvh, dev, backend="plain")
+    parts = []
+    for part, mask in (("vignetted", vig), ("traced", ~vig)):
+        n = int(mask.sum())
+        if n == 0:
+            parts.append(f"0 {part} lanes")
+            continue
+        oo, dd = o[mask].contiguous(), d[mask].contiguous()
+        tt = torch.full((n,), 1e30, dtype=torch.float32, device=dev)
+        hk, hp = k_isect.closest(oo, dd, tt), p_isect.closest(oo, dd, tt)
+        ties = bench_scene.check_hits(hk, hp, tt, False, f"21.1 realistic {part} lanes")
+        hits = int((hk.prim >= 0).sum())
+        parts.append(f"{n} {part} lanes ({hits} hit, {ties} tie lanes)")
+    print(f"phase 21.1: realistic camera, sample 0: {'; '.join(parts)}; each part's camera batch "
+          f"held against the plain traversal, contract met {secs()}", flush=True)
+
+    # 21.2: a measured sensor and a white-balanced PixelSensor, Path and VolPath
+    sensors = {"measured canon_eos_5d_mkiv 5000 K":
+               film_mod.make_measured_sensor("canon_eos_5d_mkiv", 5000.0),
+               "PixelSensor 3000 K": film_mod.make_sensor(3000.0)}
+    for sname, sensor in sensors.items():
+        for kname, kcfg in (("Path, make_wave_fn", cfg),
+                            ("VolPath, the phased wave", cfg._replace(kind="volpath"))):
+            label = f"21.2 {sname}, {kname}"
+            r = scene_waves(torch, "21.2", {label: (sc, dbvh)}, cam, kcfg, scfg, dev, rounds=1,
+                            profile=False, sensor=sensor)[label]
+            total += r["launches"]
+            img_k = film_mod.develop(r["film_k"], sensor=sensor)
+            img_p = film_mod.develop(r["film_p"], sensor=sensor)
+            close, rel = film_agreement(img_k, img_p)
+            check(bool(torch.isfinite(img_k).all()) and float(img_k.mean()) > 0
+                  and close >= 0.995 and rel <= 1e-3,
+                  f"{label}: image mean {float(img_k.mean())}, {close} of pixels agree with "
+                  f"the plain traversal's, mean rel diff {rel}")
+            print(f"phase 21.2: {label}: developed image of sample 0 mean "
+                  f"{float(img_k.mean()):.6f}, the plain traversal's agrees on {close:.6f} of "
+                  f"pixels, mean rel diff {rel:.3g} {secs()}", flush=True)
+
+    # 21.3: one wave's samples into a SpectralFilm on the card and on the CPU
+    ls = lightsamplers.build(sc, cfg.light_sampler, dev)
+    reset_counts()
+    k_isect.n_calls = 0
+    L, lam, lam_pdf, fw = integrator.trace_wave(scene_mod.to_device(sc, dev), None, cam, scfg_d,
+                                                cfg, pix, 0, ls, k_isect)[:4]
+    counts = launch_counts()
+    check(set(counts) == {"bvh4_traverse"} and counts["bvh4_traverse"] == k_isect.n_calls,
+          f"21.3: launches {counts} for {k_isect.n_calls} traversal calls")
+    total += counts["bvh4_traverse"]
+    perm = torch.as_tensor(np.random.RandomState(21).permutation(R).astype(np.int32), device=dev)
+    errs = []
+    for seq, idx in ((True, pix), (False, perm)):
+        outs = []
+        for device, move in ((dev, lambda t: t), ("cpu", lambda t: t.cpu())):
+            sf = film_mod.add_samples_spectral(
+                film_mod.make_spectral_film(H, W, device=device), move(idx), move(L),
+                move(lam), move(lam_pdf), move(fw), sequential=seq)
+            outs.append(film_mod.develop_spectral(sf).cpu())
+        check(bool(torch.isfinite(outs[0]).all()) and float(outs[0].mean()) > 0,
+              "21.3: spectral film empty")
+        err = float((outs[0] - outs[1]).abs().max())
+        rel = err / max(float(outs[1].abs().max()), 1e-30)
+        check(torch.allclose(outs[0], outs[1], rtol=1e-5, atol=1e-5),
+              f"21.3: card vs CPU max |diff| {err}")
+        errs.append(f"{'sequential' if seq else 'scatter'} max |diff| {err:.3g} "
+                    f"({rel:.3g} of the largest bucket)")
+    print(f"phase 21.3: SpectralFilm (16 buckets) of one bench wave on the card vs the CPU: "
+          f"{'; '.join(errs)}; {counts['bvh4_traverse']} bvh4_traverse launches {secs()}",
+          flush=True)
+
+    # 21.4: the G-buffer, then imgtool denoise guided by its normal and albedo
+    reset_counts()
+    k_isect.n_calls = 0
+    ms_g, g_k = event_ms(torch, lambda: integrator.render_gbuffer(sc, dbvh, cam, isect=k_isect))
+    counts = launch_counts()
+    check(counts == {"bvh4_traverse": 1} and k_isect.n_calls == 1, f"21.4: launches {counts}")
+    total += 1
+    checked = bench_scene.CheckedIntersectors(k_isect, p_isect, "21.4 render_gbuffer")
+    g_c = integrator.render_gbuffer(sc, dbvh, cam, isect=checked)
+    g_p = integrator.render_gbuffer(sc, dbvh, cam, isect=p_isect)
+    check(torch.equal(g_k["mask"], g_p["mask"]), "21.4: hit masks differ")
+    worst = []
+    differ = torch.zeros(H, W, dtype=torch.bool, device=dev)
+    for k in g_k:
+        check(torch.equal(g_k[k], g_c[k]), f"21.4: {k} differs run to run")
+        dk = (g_k[k] - g_p[k]).abs().amax(-1)
+        differ |= dk > 1e-5
+        worst.append(f"{k} {float(dk.max()):.3g}")
+    check(int(differ.sum()) <= checked.ties,
+          f"21.4: {int(differ.sum())} pixels differ from the plain traversal's AOVs, "
+          f"{checked.ties} tie lanes")
+    with tempfile.TemporaryDirectory() as d:
+        noisy = colorspace.xyz_to_linear_srgb(ref_xyz).reshape(H, W, 3).cpu().numpy()
+        for name, a in (("noisy", noisy), ("nrm", g_k["ns"].cpu().numpy()),
+                        ("alb", g_k["albedo"].cpu().numpy())):
+            image.write_pfm(os.path.join(d, f"{name}.pfm"), a)
+        t1 = time.perf_counter()
+        imgtool.main(["denoise", os.path.join(d, "noisy.pfm"), os.path.join(d, "dn.pfm"),
+                      "--normal", os.path.join(d, "nrm.pfm"), "--albedo",
+                      os.path.join(d, "alb.pfm"), "--radius", "2"])
+        dn_s = time.perf_counter() - t1
+        dn = image.read_pfm(os.path.join(d, "dn.pfm"))
+    tv = lambda a: float(np.abs(np.diff(a, axis=0)).mean() + np.abs(np.diff(a, axis=1)).mean())
+    check(dn.shape == noisy.shape and np.isfinite(dn).all() and tv(dn) < tv(noisy),
+          f"21.4: denoised variation {tv(dn)} against {tv(noisy)}")
+    print(f"phase 21.4: render_gbuffer {W}x{H}: {ms_g:.2f} ms (CUDA events), 1 bvh4_traverse "
+          f"launch, hit rate {float(g_k['mask'].mean()):.4f}, camera batch held against the "
+          f"plain traversal ({checked.ties} tie lanes); max |AOV - plain| {', '.join(worst)} "
+          f"({int(differ.sum())} pixels above 1e-5); imgtool denoise (radius 2) of the 1-spp "
+          f"bench image by its normal and albedo: {dn_s:.1f} s, mean variation "
+          f"{tv(noisy):.4f} -> {tv(dn):.4f} {secs()}", flush=True)
+
+    # 21.5: cli.render with a measured sensor, a white balance and --display-server
+    path = os.path.join(os.path.dirname(bench_pbrt), "bench_sensor.pbrt")
+    with open(bench_pbrt) as f:
+        text = f.read()
+    check('Film "rgb"' in text, "21.5: no Film line")
+    with open(path, "w") as f:
+        f.write(text.replace('Film "rgb"', 'Film "rgb" "string sensor" "canon_eos_5d_mkiv" '
+                             '"float whitebalance" [5000]', 1))
+    lis = Listener()
+    buf = io.StringIO()
+    spp = 4
+    reset_counts()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        img = render.main([path, "--spp", str(spp), "--stats", "--outfile",
+                           os.path.join(os.path.dirname(bench_pbrt), "sensor.exr"),
+                           "--display-server", f"127.0.0.1:{lis.port}"])
+    cli_s = time.perf_counter() - t1
+    counts = launch_counts()
+    stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(set(counts) == {"bvh4_traverse"}, f"21.5: launches {counts}")
+    total += counts["bvh4_traverse"]
+    packets = lis.packets()
+    updates = [b for t, b in packets if t == 3]
+    check(packets[0][0] == 4 and len(updates) == 3 * spp and len(packets) == 1 + 3 * spp,
+          f"21.5: {len(packets)} packets, {len(updates)} updates for {spp} waves")
+    head = 1 + len(b"render\0") + 2 + 16
+    last = np.stack([np.frombuffer(b[head:], np.float32) for b in updates[-3:]], -1)
+    check(last.shape == (W * H, 3) and np.isfinite(last).all() and last.mean() > 0,
+          "21.5: the last update is not an image")
+    check(np.isfinite(img).all() and img.mean() > 0, f"21.5: image mean {img.mean()}")
+    print(f"phase 21.5: cli.render {os.path.basename(path)} (canon_eos_5d_mkiv, white balance "
+          f"5000 K) --spp {spp} --display-server: {len(updates)} image updates ({spp} waves x "
+          f"3 channels) received, {len(lis.data)} bytes; render {stats['render_s']} s, "
+          f"{counts['bvh4_traverse']} bvh4_traverse launches; image mean {img.mean():.6f} "
+          f"(the last wave as streamed, no sensor: {last.mean():.6f}) [{cli_s:.1f} s] {secs()}",
+          flush=True)
+
+    # 21.6: tools/determinism
+    buf = io.StringIO()
+    reset_counts()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = determinism.main([])
+    counts = launch_counts()
+    rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and rep["bit_identical"] and rep["backend"] == "cuda_bvh4"
+          and set(counts) == {"bvh4_traverse"}, f"21.6: {rep}, launches {counts}")
+    total += counts["bvh4_traverse"]
+    print(f"phase 21.6: tools/determinism: {json.dumps(rep)}, {counts['bvh4_traverse']} "
+          f"bvh4_traverse launches [{time.perf_counter() - t1:.1f} s] {secs()}", flush=True)
+
+    # 21.7: pspec's power spectrum on the card against the CPU
+    sets = np.stack([pspec.sample_points("sobol", 256, s, 0) for s in range(8)])
+    ms_p, P_k = event_ms(torch, lambda: pspec.power_spectrum(sets, 65, dev))
+    t1 = time.perf_counter()
+    P_c = pspec.power_spectrum(sets, 65, "cpu")
+    cpu_ms = (time.perf_counter() - t1) * 1e3
+    err = float(np.abs(P_k - P_c).max())
+    check(np.allclose(P_k, P_c, rtol=1e-4, atol=1e-4 * float(P_c.mean())),
+          f"21.7: power spectrum max |diff| {err}")
+    print(f"phase 21.7: pspec.power_spectrum (sobol, 8 sets of 256 points, 65^2 frequencies) "
+          f"on the card {ms_p:.2f} ms (CUDA events), on the CPU {cpu_ms:.1f} ms; max |diff| "
+          f"{err:.3g} (mean P {float(P_c.mean()):.4f})", flush=True)
+    print(f"phase 21: done in {time.perf_counter() - t0:.0f} s, {total} bvh4_traverse launches",
+          flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1794,6 +2084,8 @@ def main() -> int:
         out[0]["launches"] += launches
         out[0]["launches"] += phase_integrators(torch, sc, dbvh, cam, dev, ref_film,
                                                 paths["bench"])
+        out[0]["launches"] += phase_film_cameras(torch, sc, dbvh, cam, dev, ref_film,
+                                                 paths["bench"])
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

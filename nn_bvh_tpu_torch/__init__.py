@@ -25,18 +25,20 @@ Conventions of the port:
   `kernels.load` into `build/kernels/` at the repository root; the native
   BVH builder is built by g++ into `build/native/`.
 
-What is ported is the bench path: the Path integrator (MIS + RR) over
-every material of the JAX package (with its subsurface stage) and area
-lights, with every traversal backend
-of the JAX package (BVH4, binary, deep-stack binary, BVH8) as a CUDA kernel,
-VolPath over homogeneous and grid media (`wavefront/volpath.py`, with the
-phased wave), gradients of shading with respect to material and light
-parameters by autograd, the traversal profiler (`tools/trav_prof.py`),
-the treeNet split learner with the joint render+train step (`learn/`,
-its CLIs `cli/train.py` and `cli/tree_bench.py`; randomness there comes
-from a torch.Generator seeded by the caller), textures (`geometry/
-texture.py`), and scene input: the pbrt parser with PLY, Loop subdivision
-and curves, the native SAH builder (`native/`), image I/O (`utils/`) and
-the render CLI (`cli/render.py`). Anything else raises
-NotImplementedError naming the ROADMAP item that ports it.
+What is ported is everything the JAX package renders with: every
+integrator (Path, SimplePath, RandomWalk, AO, VolPath with the phased
+wave, LightPath, BDPT, SPPM, MLT) over every material, light, light
+sampler and sampler kind, quadrics, motion blur, textures and media; every
+camera (perspective, orthographic, spherical, realistic) and the film
+surface (white-balanced and measured sensors, the spectral film, the
+G-buffer); every traversal backend of the JAX package (BVH4, binary,
+deep-stack binary, BVH8) as a CUDA kernel; gradients of shading with
+respect to material and light parameters by autograd; the treeNet split
+learner with the joint render+train step (`learn/`; randomness there
+comes from a torch.Generator seeded by the caller); scene input (the pbrt
+parser with PLY, Loop subdivision and curves, the native SAH builder in
+`native/`); the CLIs (`cli/`: render, train, tree_bench, imgtool, pspec,
+format), `utils/` (image I/O, noise, stats, the tev display client) and
+the tools (`tools/`). The sharded render and data-parallel training
+(ROADMAP queue 1, item 7) raise NotImplementedError naming that item.
 """

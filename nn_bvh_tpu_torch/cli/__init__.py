@@ -1,2 +1,2 @@
-"""cli/ of the torch port: the learner's command lines (see the package
-docstring)."""
+"""cli/ of the torch port: render, train, tree_bench, imgtool, pspec and
+format (see the package docstring)."""

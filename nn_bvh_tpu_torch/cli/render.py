@@ -6,7 +6,7 @@ Usage:
         [--integrator path|simplepath|volpath|randomwalk|ao|lightpath|bdpt|mlt]
         [--maxdepth N] [--sampler s] [--seed N] [--res WxH] [--quick] [--stats]
         [--pixelstats PREFIX] [--mse-reference-image ref] [--write-partial-images]
-        [--device cuda|cpu]
+        [--display-server host[:port]] [--device cuda|cpu]
 
 The flags, the integrator and sampler mapping and the output format by
 extension (.png, .pfm, else EXR) are the JAX CLI's: randomwalk and ao
@@ -24,8 +24,15 @@ render seconds, rays/s, atlas MiB, dist_avg_path_length and
 rays_live_per_s (Path and VolPath) and, on the card, peak device memory.
 --pixelstats PREFIX writes PREFIX-<counter>.png per-pixel stats images
 (integrator.render_pixel_stats, at most 4 spp) and prints their totals as
-a JSON line. Not ported yet, and raising NotImplementedError: --sharded
-(ROADMAP queue 1, item 7) and --display-server (item 5).
+a JSON line. --display-server host[:port] (port 14158 by default) streams
+each wave of Path and VolPath, developed without the scene's sensor, to a
+tev viewer (utils/display.py); --write-partial-images writes waves 1, 3,
+7, ... as OUT.partial.pfm. A Film "sensor" with response curves in
+data/named_spectra.npz renders through that measured sensor, and
+"whitebalance" through its white balance (ParseResult.make_sensor). The
+camera is perspective whatever the scene's Camera names, as in the JAX
+CLI. Not ported yet, and raising NotImplementedError: --sharded (ROADMAP
+queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -66,9 +73,6 @@ def main(argv=None):
 
     if args.sharded:
         raise NotImplementedError("--sharded is not ported yet (ROADMAP queue 1, item 7: dist/)")
-    if args.display_server:
-        raise NotImplementedError("--display-server is not ported yet (ROADMAP queue 1, "
-                                  "item 5: utils/display.py)")
 
     import numpy as np
     import torch
@@ -110,12 +114,21 @@ def main(argv=None):
     print(f"scene: {sc.n_tris} tris, {sc.n_lights} lights; {width}x{height}@{spp}spp "
           f"{integ}/{sampler} on {device}", file=sys.stderr)
 
-    wave_cb = None
-    if args.write_partial_images:
+    wave_cb = tev = None
+    if args.display_server or args.write_partial_images:
+        if args.display_server:
+            from ..utils.display import TevDisplay
+
+            hp = args.display_server.split(":")
+            tev = TevDisplay(hp[0], int(hp[1]) if len(hp) > 1 else 14158)
+            tev.create_image("render", width, height)
+
         def wave_cb(s, f):
-            if (s & (s + 1)) == 0:  # waves 1, 3, 7, ...
-                image_mod.write_pfm((args.outfile or res.filename) + ".partial.pfm",
-                                    film_mod.develop(f).cpu().numpy())
+            img_p = film_mod.develop(f).cpu().numpy()
+            if tev is not None:
+                tev.update_image("render", img_p)
+            if args.write_partial_images and (s & (s + 1)) == 0:  # waves 1, 3, 7, ...
+                image_mod.write_pfm((args.outfile or res.filename) + ".partial.pfm", img_p)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -139,6 +152,8 @@ def main(argv=None):
                                 device=device)
     arr = img.cpu().numpy()
     t2 = time.time()
+    if tev is not None:
+        tev.close()
 
     out = args.outfile or res.filename
     if out.endswith(".png"):

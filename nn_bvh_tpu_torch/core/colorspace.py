@@ -1,6 +1,6 @@
-"""sRGB matrices, sensor white balance and the sRGB gamma (port of the
-parts of nn_bvh_tpu/core/colorspace.py the port uses). The matrices are
-host numpy, computed exactly as in the JAX package."""
+"""Color spaces, sensor white balance and the sRGB gamma (port of
+nn_bvh_tpu/core/colorspace.py). The matrices are host numpy, computed
+exactly as in the JAX package; the conversions take tensors."""
 
 from __future__ import annotations
 
@@ -53,10 +53,17 @@ def _rgb_space(rx, ry, gx, gy, bx, by, wx, wy):
     return (m * s[None, :]).astype(np.float32)
 
 
-# XYZ -> sRGB from the published primaries: the default sensor's output space
-# (the other output spaces are not in this slice)
-XYZ_TO_RGB_SRGB = np.linalg.inv(
-    _rgb_space(0.64, 0.33, 0.30, 0.60, 0.15, 0.06, 0.3127, 0.3290)).astype(np.float32)
+# The four color spaces (sRGB, DCI-P3, Rec2020, ACES2065-1) as RGB->XYZ
+# matrices from their published chromaticities
+RGB_TO_XYZ = {
+    "srgb": _rgb_space(0.64, 0.33, 0.30, 0.60, 0.15, 0.06, 0.3127, 0.3290),
+    "dci-p3": _rgb_space(0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.3127, 0.3290),
+    "rec2020": _rgb_space(0.708, 0.292, 0.170, 0.797, 0.131, 0.046, 0.3127, 0.3290),
+    "aces2065-1": _rgb_space(0.7347, 0.2653, 0.0000, 1.0000, 0.0001, -0.0770,
+                             0.32168, 0.33767),
+}
+XYZ_TO_RGB = {k: np.linalg.inv(v).astype(np.float32) for k, v in RGB_TO_XYZ.items()}
+XYZ_TO_RGB_SRGB = XYZ_TO_RGB["srgb"]  # the default sensor's output space
 
 
 def apply_matrix(m: np.ndarray, v: torch.Tensor) -> torch.Tensor:
@@ -77,3 +84,16 @@ def srgb_encode(rgb: torch.Tensor) -> torch.Tensor:
     return torch.where(rgb <= 0.0031308, 12.92 * rgb,
                        1.055 * torch.pow(rgb, 1.0 / 2.4) - 0.055)
 
+
+
+def linear_srgb_to_xyz(rgb: torch.Tensor) -> torch.Tensor:
+    return apply_matrix(SRGB_TO_XYZ, rgb)
+
+
+def srgb_decode(srgb: torch.Tensor) -> torch.Tensor:
+    """sRGB gamma -> linear."""
+    return torch.where(srgb <= 0.04045, srgb / 12.92, torch.pow((srgb + 0.055) / 1.055, 2.4))
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    return 0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1] + 0.0722 * rgb[..., 2]

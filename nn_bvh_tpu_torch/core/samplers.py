@@ -71,9 +71,9 @@ def make_sampler(kind: str = "sobol", seed: int = 0, spp: int = 16,
     if kind not in KINDS:
         # the JAX package's make_sampler names no other kind either: MLT's
         # TABLE kind is a SamplerConfig that wavefront/mlt.py builds
-        raise NotImplementedError(f"sampler {kind!r} has no name in make_sampler (its "
-                                  f"kinds: {', '.join(KINDS)}); MLT's TABLE kind is "
-                                  "built by wavefront/mlt.py (ROADMAP queue 1, item 8)")
+        raise ValueError(f"sampler {kind!r} has no name in make_sampler (its kinds: "
+                         f"{', '.join(KINDS)}); MLT's TABLE kind is built by "
+                         "wavefront/mlt.py")
     k = KINDS[kind]
     sobol_v = pmj = None
     if k == SOBOL_GLOBAL:
@@ -149,7 +149,7 @@ def get_1d(cfg: SamplerConfig, pixel: torch.Tensor, sample: torch.Tensor,
     if cfg.kind == PMJ02:
         bits = _pmj_bits(cfg, sample, int(dim) % 2)
         return _to_float(_scramble(bits, rng.hash_combine(pixel, dim, cfg.seed)))
-    raise NotImplementedError(f"sampler kind {cfg.kind} is not ported yet")
+    raise ValueError(f"sampler kind {cfg.kind} is unknown")
 
 
 def get_2d(cfg: SamplerConfig, pixel: torch.Tensor, sample: torch.Tensor,
@@ -198,4 +198,4 @@ def get_2d(cfg: SamplerConfig, pixel: torch.Tensor, sample: torch.Tensor,
         ux, uy = _pmj_bits(cfg, sample, 0), _pmj_bits(cfg, sample, 1)
         return (_to_float(_scramble(ux, rng.hash_combine(pixel, dim, cfg.seed))),
                 _to_float(_scramble(uy, rng.hash_combine(pixel, dim, cfg.seed ^ 0x71F3))))
-    raise NotImplementedError(f"sampler kind {cfg.kind} is not ported yet")
+    raise ValueError(f"sampler kind {cfg.kind} is unknown")

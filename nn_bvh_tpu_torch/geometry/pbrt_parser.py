@@ -14,8 +14,9 @@ with the same warnings as the JAX parser, in result.warnings.
 Where the port differs: PNG textures are read by the port's own decoder
 (utils/image.read_png; the JAX parser uses PIL, which the card's machine
 lacks); JPEG and TGA textures are not read and fall back to a constant
-through the parser's warning path; a scene naming a measured sensor or a
-white balance raises (ROADMAP queue 1, item 8).
+through the parser's warning path. As in the JAX package, the camera's
+kind is parsed (`camera_kind`) and load_scene builds a perspective camera
+whatever it names.
 """
 
 from __future__ import annotations
@@ -214,15 +215,17 @@ class ParseResult:
     warnings: list = field(default_factory=list)
 
     def make_sensor(self):
-        """PixelSensor for develop() (None when all defaults). A known
-        measured sensor raises (ROADMAP queue 1, item 8); an unknown sensor
-        name is the XYZ sensor, as in the JAX package."""
-        from ..core import named_spectra
+        """The sensor for develop(): None when all defaults; a named
+        measured sensor (white balance `white_balance or 6500`, iso,
+        exposure); the XYZ sensor for an unknown name, as in the JAX
+        package."""
         from ..wavefront import film as film_mod
 
-        if self.sensor != "cie1931" and named_spectra.has(self.sensor + "_r"):
-            raise NotImplementedError(f"measured sensor {self.sensor!r} is not ported "
-                                      "yet (ROADMAP queue 1, item 8)")
+        if self.sensor != "cie1931":
+            ms = film_mod.make_measured_sensor(self.sensor, self.white_balance or 6500.0,
+                                               self.iso, self.exposure)
+            if ms is not None:
+                return ms
         if (self.iso == 100.0 and self.exposure == 1.0
                 and self.white_balance is None):
             return None
@@ -714,9 +717,10 @@ def parse_file(path: str) -> ParseResult:
             res.width = int(pget(p, "xresolution", 640))
             res.height = int(pget(p, "yresolution", 480))
             res.filename = pget(p, "filename", "out.exr")
-            # PixelSensor parameters (film.h:36): iso scales the imaging
-            # ratio (iso/100); named sensors approximate to the XYZ sensor
-            # (measured spectral response curves not vendored)
+            # PixelSensor parameters: iso scales the imaging ratio
+            # (iso/100); a named sensor's response curves are in
+            # data/named_spectra.npz (make_sensor), an unknown name is the
+            # XYZ sensor
             res.iso = float(pget(p, "iso", 100.0))
             res.exposure = float(pget(p, "exposuretime", 1.0))
             wb = pget(p, "whitebalance", 0.0)
@@ -798,7 +802,7 @@ def parse_file(path: str) -> ParseResult:
                         # 8-bit formats are sRGB-encoded (pbrt ColorEncoding
                         # sRGB for LDR images, util/color.h) -> linearize
                         if not fn.endswith(".png"):
-                            raise NotImplementedError("only PNG of the 8-bit formats")
+                            raise ValueError("no decoder: only PNG of the 8-bit formats is read")
                         raw = image_mod.read_png(full)
                         img = np.where(raw <= 0.04045, raw / 12.92,
                                        ((raw + 0.055) / 1.055) ** 2.4)

@@ -271,14 +271,14 @@ def to_device(scene: CompiledScene, device) -> CompiledScene:
 
 
 def check_slice(fields: dict) -> None:
-    """Raise NotImplementedError for material or light tags the port does
-    not know (keys and values as in the JAX CompiledScene)."""
+    """Raise ValueError for material or light tags the port does not know
+    (keys and values as in the JAX CompiledScene)."""
     bad_mats = set(np.unique(host(fields["mat_type"])).tolist()) - set(SLICE_MATERIALS)
     if bad_mats:
-        raise NotImplementedError(f"material tags {sorted(bad_mats)} are unknown")
+        raise ValueError(f"material tags {sorted(bad_mats)} are unknown")
     bad_lights = set(np.unique(host(fields["light_type"])).tolist()) - set(SLICE_LIGHTS)
     if bad_lights:
-        raise NotImplementedError(f"light tags {sorted(bad_lights)} are unknown")
+        raise ValueError(f"light tags {sorted(bad_lights)} are unknown")
 
 
 def scene_from_numpy(fields: dict, bvh_fields: dict, device):

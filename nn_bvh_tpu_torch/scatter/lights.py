@@ -278,7 +278,7 @@ def sample_li(scene, light_all, light_id, p, lam, u2, tags=None) -> LightLiSampl
     wi, dist, pdf, li = torch.zeros_like(p), inf, one, torch.zeros_like(emit)
     for tag in sorted(tags):
         if tag not in branch:
-            raise NotImplementedError(f"light tag {tag} is unknown")
+            raise ValueError(f"light tag {tag} is unknown")
         is_t = ltype == tag
         b_wi, b_dist, b_pdf, b_li = branch[tag]
         wi = torch.where(is_t[..., None], b_wi, wi)

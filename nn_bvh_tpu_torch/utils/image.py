@@ -93,7 +93,7 @@ def read_png(path: str) -> np.ndarray:
         elif tag == b"IEND":
             break
     if interlace:
-        raise NotImplementedError(f"{path}: interlaced PNGs are not read")
+        raise ValueError(f"{path}: interlaced PNGs are not read")
     if ctype not in _PNG_CHANNELS:
         raise ValueError(f"{path}: PNG colour type {ctype}")
     chans = _PNG_CHANNELS[ctype]

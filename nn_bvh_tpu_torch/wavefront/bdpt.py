@@ -34,7 +34,7 @@ from ..scatter import bxdf, lights, lightsamplers
 from . import camera as camera_mod, film as film_mod
 from .integrator import IntegratorConfig, NoGradIntersectors, _shading_point
 from .lightpath import (_camera_screen_area, camera_project, light_tri_verts, make_intersectors,
-                        sample_le)
+                        require_perspective, sample_le)
 
 
 class Vertex(NamedTuple):
@@ -427,7 +427,9 @@ def render_bdpt(scene, dbvh, cam, spp: int = 16, sampler: str = "independent", s
                 isect=None) -> torch.Tensor:
     """BDPT render: per-pixel strategies into the film, the t = 1 splats
     beside them, developed with splat_scale 1/spp -> (H, W, 3) linear sRGB.
-    `isect` overrides the traversal backend."""
+    `isect` overrides the traversal backend. The camera must be
+    perspective (lightpath.require_perspective)."""
+    require_perspective(cam, "BDPT")
     device = resolve_device(device, scene)
     R = cam.width * cam.height
     sampler_cfg = samplers.to_device(

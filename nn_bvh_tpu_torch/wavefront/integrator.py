@@ -168,8 +168,8 @@ def _check_cfg(cfg: IntegratorConfig):
         raise ValueError(f"unknown integrator kind {cfg.kind!r} (wave kinds: "
                          f"{', '.join(WAVE_KINDS)})")
     if cfg.kind not in VOL_KINDS and not cfg.resort:
-        raise NotImplementedError("the Path wave re-sorts its lanes on every CUDA "
-                                  "backend; resort=False is VolPath's switch only")
+        raise ValueError("the Path wave re-sorts its lanes on every CUDA "
+                         "backend; resort=False is VolPath's switch only")
 
 
 class NoGradIntersectors:
@@ -206,6 +206,13 @@ def filter_jitter(cfg: IntegratorConfig, u2):
         return u2, torch.ones(u2.shape[:-1], dtype=torch.float32, device=u2.device)
     off, w = filters.sample(cfg.filt, u2)
     return 0.5 + off, w
+
+
+def camera_spread(cam) -> float:
+    """The camera rays' cone spread (texture LOD): from the pixel's solid
+    angle at the perspective camera's fov, at 60 degrees for other kinds."""
+    return texture.camera_spread(cam.fov if cam.kind == camera_mod.PERSPECTIVE else 60.0,
+                                 cam.height)
 
 
 def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
@@ -256,7 +263,7 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
     eta_scale = torch.ones(R, **f32)
     # ray-cone state (the texture LOD of gather_material)
     cone_w = torch.zeros(R, **f32)
-    cone_s = torch.full((R,), texture.camera_spread(cam.fov, cam.height), **f32)
+    cone_s = torch.full((R,), camera_spread(cam), **f32)
     # per-lane stats counters [bounces, shadow rays, hits, RR terminations]
     st = torch.zeros(R, 4, **f32) if cfg.collect_stats else None
     nee = cfg.sample_lights
@@ -524,11 +531,47 @@ def render_pixel_stats(scene, dbvh, cam, spp: int = 4, sampler: str = "sobol", s
     return imgs, totals
 
 
+def render_gbuffer(scene, dbvh, cam, device=None, isect=None) -> dict:
+    """First-hit AOVs (GBufferFilm / VisibleSurface): a dict of (H, W, C)
+    float32 tensors, "p" (3), "ns" (3), "ng" (3), "uv" (2), "depth" (1),
+    "albedo" (3), "mask" (1), from one ray through each pixel center
+    (lens sample 0.5) through the unsorted intersectors (`isect` overrides
+    them). Albedo is the material's base color at 602.8, 539.1 and 448.9 nm
+    (near the RGB primaries); every AOV is 0 where the ray misses."""
+    if isect is not None and device is None:
+        device = isect.device
+    device = resolve_device(device, scene)
+    if isect is None:
+        isect = dispatch.make_intersectors(scene, dbvh, device, sort=False)
+    isect = NoGradIntersectors(isect)
+    scene = scene_mod.to_device(scene, device)
+    H, W = cam.height, cam.width
+    R = H * W
+    f32 = dict(dtype=torch.float32, device=device)
+    pixel_idx = torch.arange(R, dtype=torch.int32, device=device)
+    u_half = torch.full((R, 2), 0.5, **f32)
+    o, d = camera_mod.generate_rays(cam, pixel_idx, u_half, u_half)
+    hit = isect.closest(o, d, torch.full((R,), 1e30, **f32))
+    found = hit.prim >= 0
+    sp = _shading_point(scene, hit, o, d)
+    lam_rgb = torch.tensor([602.8, 539.1, 448.9, 550.0], **f32).expand(R, 4)
+    albedo = bxdf.gather_material(scene, sp.mat, lam_rgb, None, sp.uv).refl[..., :3]
+    msk = found[..., None]
+    shp = lambda a, c: torch.where(msk, a, 0.0).reshape(H, W, c)
+    return {"p": shp(sp.p, 3), "ns": shp(sp.ns, 3), "ng": shp(sp.ng, 3),
+            "uv": shp(sp.uv, 2),
+            "depth": shp(torch.where(found, hit.t, 0.0)[..., None], 1),
+            "albedo": shp(albedo, 3), "mask": shp(msk.to(torch.float32), 1)}
+
+
 def make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig,
-                 isect=None, device=None):
+                 isect=None, device=None, sensor=None):
     """Build the 1-spp wave function film, sample_idx -> film. Host-side
-    tables (light sampler, BVH4 packing) are built here and uploaded once.
-    `isect` overrides the traversal backend (tests / comparisons).
+    tables (light sampler, BVH4 packing, a measured sensor's response
+    curves) are built here and uploaded once. `isect` overrides the
+    traversal backend (tests / comparisons). With a film.MeasuredSensor
+    the film accumulates its camera RGB (film.add_samples' sensor_curves);
+    develop the film with the same sensor.
 
     VolPath takes the phased wave (volpath.make_phased_wave) when
     cfg.compact and cfg.early_exit are set, the traversal is a CUDA
@@ -550,8 +593,9 @@ def make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig,
     if (cfg.kind in VOL_KINDS and cfg.compact and cfg.early_exit
             and isect.backend in dispatch.CUDA_BACKENDS and not animated):
         return volpath.make_phased_wave(scene, dbvh, cam, sampler_cfg, cfg, isect=isect,
-                                        device=device)
+                                        device=device, sensor=sensor)
     ls_tables = lightsamplers.build(scene, cfg.light_sampler, device)
+    curves = film_mod.sensor_curves(sensor, device)
     scene_d = scene_mod.to_device(scene, device)
     pixel_idx = torch.arange(cam.width * cam.height, dtype=torch.int32, device=device)
 
@@ -569,7 +613,7 @@ def make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig,
             isect.set_triangles(sc.tri_p)
         L, lam, lam_pdf, fw = trace(sc, sample_idx)
         return film_mod.add_samples(film, pixel_idx, L, lam, lam_pdf,
-                                    filter_weight=fw, sequential=True)
+                                    filter_weight=fw, sequential=True, sensor_curves=curves)
 
     return wave
 
@@ -596,11 +640,13 @@ def scene_at_shutter(scene, sample_idx, spp: int):
 def render(scene, dbvh, cam, spp: int = 16, sampler: str = "sobol", seed: int = 0,
            cfg: IntegratorConfig = IntegratorConfig(), wave_callback=None,
            sensor=None, device=None) -> torch.Tensor:
-    """Progressive render, one 1-spp wave per sample -> (H,W,3) linear sRGB."""
+    """Progressive render, one 1-spp wave per sample -> (H,W,3) linear sRGB.
+    wave_callback(sample index, film) runs after each wave (the display
+    stream and partial images of cli.render)."""
     device = resolve_device(device, scene)
     sampler_cfg = samplers.make_sampler(sampler, seed=seed, spp=spp, width=cam.width)
     film = film_mod.make_film(cam.height, cam.width, device)
-    wave = make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg, device=device)
+    wave = make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg, device=device, sensor=sensor)
     for s in range(spp):
         film = wave(film, s)
         if wave_callback is not None:

@@ -27,8 +27,18 @@ from ..core import vecmath as vm, sampling, spectrum, samplers, rng
 from ..devices import resolve_device
 from ..geometry import scene as scene_mod, triangle
 from ..scatter import bxdf, lights, lightsamplers
-from . import film as film_mod
+from . import camera as camera_mod, film as film_mod
 from .integrator import IntegratorConfig, NoGradIntersectors, _shading_point
+
+
+def require_perspective(cam, integrator: str) -> None:
+    """Light tracing projects onto a pinhole camera's film (camera_project,
+    _camera_screen_area). The JAX package reads fov 0 for another kind of
+    camera, and so a screen area of 0 (every splat dropped or infinite); the
+    port refuses such a camera."""
+    if cam.kind != camera_mod.PERSPECTIVE:
+        raise ValueError(f"{integrator} splats through a perspective camera; camera kind "
+                         f"{cam.kind} has no pinhole projection")
 
 
 def _camera_screen_area(cam) -> float:
@@ -238,7 +248,9 @@ def render_lightpath(scene, dbvh, cam, spp: int = 16, sampler: str = "independen
                      isect=None) -> torch.Tensor:
     """LightPathIntegrator: spp waves of light subpaths splatted to the
     film, developed with splat_scale = pixels / (paths a wave * spp) ->
-    (H, W, 3) linear sRGB. `isect` overrides the traversal backend."""
+    (H, W, 3) linear sRGB. `isect` overrides the traversal backend. The
+    camera must be perspective (require_perspective)."""
+    require_perspective(cam, "LightPath")
     device = resolve_device(device, scene)
     R = cam.width * cam.height
     n_paths = paths_per_wave or R

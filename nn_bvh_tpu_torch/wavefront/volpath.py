@@ -53,8 +53,8 @@ from ..geometry import scene as scene_mod, texture
 from ..scatter import bxdf, lights, lightsamplers, media
 from . import camera as camera_mod, film as film_mod
 from .integrator import (DIM_PIXEL, DIM_WAVELENGTH, DIM_LENS, DIM_PATH_BASE,
-                         DIMS_PER_DEPTH, IntegratorConfig, _shading_point, count,
-                         filter_jitter)
+                         DIMS_PER_DEPTH, IntegratorConfig, _shading_point, camera_spread,
+                         count, filter_jitter)
 
 S = spectrum.N_SPECTRUM_SAMPLES
 
@@ -180,7 +180,7 @@ def init_state(ctx: VolCtx, pixel_idx, sample_idx) -> VolState:
         active=true, specular_prev=true, prev_p=o,
         cur_med=torch.full((R,), ctx.scene.camera_medium, dtype=torch.int32, device=device),
         eta_scale=torch.ones(R, **f32), cone_w=torch.zeros(R, **f32),
-        cone_s=torch.full((R,), texture.camera_spread(cam.fov, cam.height), **f32),
+        cone_s=torch.full((R,), camera_spread(cam), **f32),
         pixel_idx=pixel_idx, lam=lam, perm=torch.arange(R, device=device), sidx=sidx,
         film_w=film_w, lam_pdf=lam_pdf,
         st=torch.zeros(R, 4, **f32) if ctx.cfg.collect_stats else None)
@@ -635,7 +635,7 @@ def ladder(R: int) -> list:
 
 
 def make_phased_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, isect=None,
-                     phase_len: int = 8, device=None):
+                     phase_len: int = 8, device=None, sensor=None):
     """The wavefront with compaction for deep paths (the crown's depth 100).
 
     The bounce loop runs in phases: bounces 1, 1, 2 and 4, then `phase_len`
@@ -646,11 +646,13 @@ def make_phased_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, isect
     Returns wave(film, sample_idx) -> film; after a call, `wave.phases`
     lists (depth reached, lanes run, live lanes) per phase, and with
     cfg.collect_stats `wave.stats` holds the wave's (R, 4) counters by
-    pixel."""
+    pixel. A film.MeasuredSensor's curves go to every film add, as in
+    integrator.make_wave_fn."""
     if isect is not None and device is None:
         device = isect.device
     device = resolve_device(device, scene)
     ls_tables = lightsamplers.build(scene, cfg.light_sampler, device)
+    curves = film_mod.sensor_curves(sensor, device)
     if isect is None:
         isect = dispatch.make_intersectors(scene, dbvh, device, sort=not cfg.resort)
     ctx = make_context(scene_mod.to_device(scene, device), cam,
@@ -665,7 +667,8 @@ def make_phased_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, isect
         if st.st is not None:  # a padding lane's counters are 0
             wave.stats.index_add_(0, st.pixel_idx.long(), st.st)
         return film_mod.add_samples(film, st.pixel_idx, st.L, st.lam, st.lam_pdf,
-                                    filter_weight=st.film_w, sequential=False)
+                                    filter_weight=st.film_w, sequential=False,
+                                    sensor_curves=curves)
 
     def wave(film, sample_idx):
         pix = torch.arange(sizes[0], dtype=torch.int32, device=device)

@@ -315,6 +315,6 @@ def test_scene_from_numpy_refuses_unported_features():
     for name, tag in (("mat_type", scene.MAT_SUBSURFACE + 1),
                       ("light_type", scene.LIGHT_SPHERE_AREA + 1)):
         bad = dict(fields, **{name: np.full_like(np.asarray(fields[name]), tag)})
-        with pytest.raises(NotImplementedError, match="unknown"):
+        with pytest.raises(ValueError, match="unknown"):
             scene.scene_from_numpy(bad, dbvh._asdict(), "cpu")
     assert scene.SceneBuilder().add_material("diffuse", texture=0) == 0

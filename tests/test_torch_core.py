@@ -224,5 +224,5 @@ def test_colorspace_matrices_match():
 def test_unported_sampler_raises():
     # every kind of the JAX package's make_sampler is ported; MLT's table
     # kind has no name there and comes with its integrator
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="TABLE kind is built by wavefront/mlt.py"):
         samplers.make_sampler("table")

@@ -127,7 +127,7 @@ def test_table_sampler_bit_identical():
 
 
 def test_table_kind_has_no_name():
-    with pytest.raises(NotImplementedError, match="TABLE kind is built by wavefront/mlt.py"):
+    with pytest.raises(ValueError, match="TABLE kind is built by wavefront/mlt.py"):
         samplers.make_sampler("table")
 
 

@@ -474,7 +474,7 @@ Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] "integer indices" [0 1 2]
 """)
     tr = pbrt_parser.parse_file(str(tmp_path / "s.pbrt"))
     jr = j_parser.parse_file(str(tmp_path / "s.pbrt"))
-    assert "imagemap 't.jpg' unreadable (NotImplementedError), constant" in tr.warnings
+    assert "imagemap 't.jpg' unreadable (ValueError), constant" in tr.warnings
     assert "texture reflectance approximated by constant" in tr.warnings
     assert not jr.warnings
     assert tr.builder.build().mat_params[0, 5] == -1
@@ -482,18 +482,35 @@ Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] "integer indices" [0 1 2]
 
 
 def test_sensors_raise_or_fall_back(tmp_path):
-    """A measured sensor and a white balance raise (ROADMAP queue 1, item
-    8); iso and exposure make the default sensor as in JAX."""
-    def parse(film):
-        (tmp_path / "s.pbrt").write_text(f'Film "rgb" {film}\nCamera "perspective"\nWorldBegin\n')
-        return pbrt_parser.parse_file(str(tmp_path / "s.pbrt"))
+    """A measured sensor (with and without a white balance), a white
+    balance alone, iso and exposure, and an unknown sensor name (the XYZ
+    sensor, with the JAX parser's warning) give the sensors of JAX's
+    ParseResult.make_sensor (1e-5)."""
+    from nn_bvh_tpu.wavefront import film as j_film
+    from nn_bvh_tpu_torch.wavefront import film
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        parse('"string sensor" "canon_eos_100d"').make_sensor()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        parse('"float whitebalance" [5000]').make_sensor()
-    s = parse('"float iso" [200] "float exposuretime" [0.5]').make_sensor()
-    assert s.imaging_ratio == 1.0
+    def parse(mod, film_params):
+        (tmp_path / "s.pbrt").write_text(f'Film "rgb" {film_params}\nCamera "perspective"\n'
+                                         'WorldBegin\n')
+        return mod.parse_file(str(tmp_path / "s.pbrt"))
+
+    for params, kind in (('"string sensor" "canon_eos_100d"', film.MeasuredSensor),
+                         ('"string sensor" "nikon_d810" "float whitebalance" [4000] '
+                          '"float iso" [400]', film.MeasuredSensor),
+                         ('"float whitebalance" [5000]', film.PixelSensor),
+                         ('"float iso" [200] "float exposuretime" [0.5]', film.PixelSensor),
+                         ('"string sensor" "no_such_camera"', type(None))):
+        tr, jr = parse(pbrt_parser, params), parse(j_parser, params)
+        assert tr.warnings == jr.warnings
+        t, j = tr.make_sensor(), jr.make_sensor()
+        assert isinstance(t, kind) and type(j).__name__ == kind.__name__, params
+        if t is None:
+            continue
+        assert t.imaging_ratio == j.imaging_ratio
+        for a, b in zip(t[:-1], j[:-1]):
+            np.testing.assert_allclose(a, np.asarray(b), atol=1e-5, rtol=0, err_msg=params)
+    assert parse(pbrt_parser, '"float iso" [200] "float exposuretime" [0.5]').make_sensor() \
+        .imaging_ratio == 1.0
 
 
 def test_png_reader_matches_pil(tmp_path):

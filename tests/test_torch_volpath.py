@@ -454,7 +454,7 @@ def test_resort_off_traces_through_the_sorted_intersector():
     imgs = [integrator.render(sc, dbvh, cam, spp=1, device="cpu", cfg=integrator.IntegratorConfig(
                 kind="volpath", max_depth=4, resort=resort)).numpy() for resort in (True, False)]
     np.testing.assert_allclose(imgs[1], imgs[0], rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="resort=False"):
+    with pytest.raises(ValueError, match="resort=False"):
         integrator.render(sc, dbvh, cam, spp=1, device="cpu",
                           cfg=integrator.IntegratorConfig(max_depth=4, resort=False))
 
@@ -523,5 +523,5 @@ def test_scene_check_takes_media_refuses_the_rest(extra):
     np.testing.assert_array_equal(tsc.tex_atlas.numpy(), np.asarray(sc.tex_atlas))
     bad = dict(sc._asdict(), light_type=np.full_like(np.asarray(sc.light_type),
                                                      scene.LIGHT_SPHERE_AREA + 1))
-    with pytest.raises(NotImplementedError, match="unknown"):
+    with pytest.raises(ValueError, match="unknown"):
         scene.scene_from_numpy(bad, dbvh._asdict(), "cpu")
