@@ -110,8 +110,8 @@ points, once per traversal backend, and checks it:
    waves), bvh4_traverse launches a wave, the CUDA kernels of a wave
    (torch.profiler), the lanes and live lanes of each phase; the fog image
    finite with mean > 0, its peak memory, and its phased wave over
-   cuda_bvh4 against trace_wave_vol over the plain traversal on the same
-   samples (atol and rtol 1e-5), every batch the phased wave hands the
+   cuda_bvh4 against trace_wave_vol over the plain traversal on sample 0
+   (atol and rtol 1e-5), every batch the phased wave hands the
    kernel held against the plain traversal (phase 3's contract, tie lanes
    counted); the fog scene as built (its sphere opaque: no ray enters the
    medium) and with the sphere as a medium boundary (rays scatter in it);
@@ -129,11 +129,12 @@ points, once per traversal backend, and checks it:
    among them) is held against the plain traversal (phase 3's contract,
    tie lanes counted); the gradient of one wave with Russian roulette off
    (d sum(film.xyz)/R / d mat_coeffs, by autograd over two chunks of
-   80,000 lanes, which bounds autograd's memory) finite on every material
-   and equal through cuda_bvh4 and the plain traversal (rtol 1e-3 + atol
-   1e-6), its forward + backward time and peak memory; then phase 15's fog
-   run on `build_fog_scene(interface="glass")` (a dielectric sphere, eta
-   1.33, holding the fog): time, launches, phases, the phased wave against
+   80,000 lanes, which bounds autograd's memory) finite on every material,
+   the first chunk's equal through cuda_bvh4 and the plain traversal (rtol
+   1e-3 + atol 1e-6), its forward + backward time and peak memory; then
+   phase 15's fog run on `build_fog_scene(interface="glass")` (a
+   dielectric sphere, eta 1.33, holding the fog; one timed wave after the
+   warm-up, ~8 s each): time, launches, phases, the phased wave against
    trace_wave_vol (1e-5), lane scatterings in the fog > 0, and the lanes
    whose medium changed on real transmission through the glass > 0. Each
    line ends with the seconds since phase 16 began;
@@ -213,7 +214,8 @@ points, once per traversal backend, and checks it:
    launches = traversal calls and no other kernel, CUDA kernels and copies
    (torch.profiler, a second run, whose image must equal the first's for
    the line's "repeatable"), peak memory, the image finite with mean > 0,
-   and the same seed through the plain traversal by phase 5's rule; 20.5
+   and the same seed through the plain traversal by phase 5's rule (MLT:
+   the kernel's and the plain traversal's render at 200x200); 20.5
    each mean against Path's (phase 5's film): LightPath within 12%, MLT
    within max(0.03, 15%), BDPT within 5% (the JAX package's own bands),
    SPPM's ratio printed; 20.6 cli.render on phase 19's pbrt file with
@@ -245,6 +247,40 @@ points, once per traversal backend, and checks it:
    wave functions: bit-identical); 21.7 pspec.power_spectrum on the card
    against the CPU (rtol 1e-4 + atol 1e-4 x mean P). Its launches count in
    bvh4_traverse's.
+22. dist/, the kd-tree and the reference-bound tools (`phase_dist`): 22.1
+   dist.sharding.render_sharded at world size 1 on the bench configuration
+   (400x400, depth 4, Sobol 16 spp) through cuda_bvh4, ms a wave (CUDA
+   events between the wave callbacks, the median after the first), its
+   band film after 4 waves against the same call through the plain
+   traversal stopped there, by phase 5's rule; 22.3 the render killed after 8 of its 16 waves by its wave
+   callback, which saves the render state
+   (dist.multihost.save_render_state), then resumed from it: bit-equal to
+   22.1's image; 22.2 two processes on this card (dist.multihost.run_local:
+   torchrun's environment, gloo), each rank running `chip_smoke.py
+   --worker`: its pixel band of the bench wave at 128x128 x 16 spp through
+   bvh4_traverse, the bands gathered over gloo; the image against world
+   size 1's (bit-equal printed, phase 5's rule held), the wall seconds with
+   each process's start-up; 22.5 in the same ranks one data-parallel
+   treeNet step (phase 18's configuration, batch 8 as 4 + 4) and one joint
+   step (phase 14's wave as two bands, RR off) against this process's
+   single-process losses and gradients: the losses averaged, the
+   gradients summed (the JAX package's shard-mapped step), phase 18's rule
+   (loss rtol 1e-4, gradients or the update within 1e-3 of the largest);
+   22.4 `cli.render --sharded` on phase 19's .pbrt file on two ranks
+   (128x128, 4 spp): rank 0 alone writes the PFM and the stats, which
+   agree with render_sharded at world size 1 by phase 5's rule; 22.6 the
+   kd-tree (accel.kdtree) built on the bench geometry (host seconds,
+   nodes, max_leaf, clamped leaves), its closest and any-hit walks on
+   phase 3's incoherent batch against bvh4_traverse (prim equal but on
+   exact t ties and on lanes behind the mirrored clamped scan, t bit-equal
+   on equal prims, occlusion equal on live lanes but those), ms by CUDA
+   events and the lockstep steps; 22.7 tools.crown_grad.grad_check on the
+   .pbrt file at 64x64 (material 0, the mix's diffuse side, Russian
+   roulette off as phase 14's check) under 2% (with roulette its value
+   printed); host-only, no render of the port: tools.crown_gate
+   --use-existing gates the committed crown EXRs with numpy (PASS).
+   Its launches (22.1, 22.2-22.5 as the ranks report them, 22.3, 22.4's
+   reference, 22.7) count in bvh4_traverse's; 22.6's are comparisons.
 
 Any failure raises (exit code != 0). The last two lines of standard output
 are a JSON record of the kernels and {"ok": true, "device": {...}}.
@@ -252,6 +288,7 @@ are a JSON record of the kernels and {"ok": true, "device": {...}}.
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -275,6 +312,7 @@ LAB_REPLACES = {"lab_traverse": "tools/perf/kernel_lab.py:202",
                 "brless_traverse": "tools/perf/kernel_lab.py:360",
                 "floor_bench": "tools/perf/kernel_lab.py:434"}
 LAB_R = 65536
+MLT_CHECK_RES = 200  # 20.4's render against the plain traversal
 FLOPS_FLOOR_SLAB = 6  # per lane: 2 sub, min, max, mul, compare
 
 
@@ -780,13 +818,18 @@ def phase_gradients(torch, sc, dbvh, cam, dev):
 def cuda_kernel_count(torch, fn) -> int | None:
     """CUDA kernels and copies launched by fn (torch.profiler, device
     activity only: the host's op events would make a profile of 100,000s of
-    kernels take minutes to read), None when the profiler records none."""
+    kernels take minutes to read), None when the profiler records none. The
+    events are counted as kineto hands them over: prof.events() would build
+    a FunctionEvent tree first, ~20x slower (a profile of 190,000 kernels
+    took 40 s to read that way)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+    n = sum(1 for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA)
     return n or None
 
 
@@ -862,7 +905,9 @@ def phase_fog(torch, dev, interface, phase: int = 15):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
-    film, ms, launches, phases = timed_waves(torch, label, wave, film, 1, 3)
+    # the glass scene's wave takes ~9 s: phase 16 times one after the warm-up
+    n_timed = 3 if phase == 15 else 1
+    film, ms, launches, phases = timed_waves(torch, label, wave, film, 1, n_timed)
     peak = torch.cuda.max_memory_allocated() - base_mem
     img = film_mod.develop(film)
     check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0, f"{label}: bad image")
@@ -870,10 +915,10 @@ def phase_fog(torch, dev, interface, phase: int = 15):
     n_k = cuda_kernel_count(torch, lambda: wave(film, 4)) if phase == 15 else None
     print(f"phase {phase}: {label} ({fsc.n_tris} triangles, {fsc.n_media} medium, "
           f"{fcam.width}x{fcam.height}, depth {cfg.max_depth}): {ms:.1f} ms a wave (CUDA "
-          f"events, 3 waves after a warm-up), {launches:.1f} bvh4_traverse launches a wave, "
-          f"CUDA kernels and copies a wave (torch.profiler): "
+          f"events, {n_timed} wave(s) after a warm-up), {launches:.1f} bvh4_traverse launches "
+          f"a wave, CUDA kernels and copies a wave (torch.profiler): "
           f"{n_k if n_k is not None else 'not measured'}, peak memory "
-          f"{peak / 2**20:.1f} MiB above {base_mem / 2**20:.1f} MiB; phases of wave 3 (depth, "
+          f"{peak / 2**20:.1f} MiB above {base_mem / 2**20:.1f} MiB; phases of wave {n_timed} (depth, "
           f"lanes, live): {phases}; image mean {float(img.mean()):.6f}", flush=True)
 
     # the phased wave over cuda_bvh4 against the whole-wave trace over the
@@ -905,14 +950,13 @@ def phase_fog(torch, dev, interface, phase: int = 15):
         changed.append(int((before != after).sum()))
         return out
 
+    # one wave (sample 0): the two traces of a sample of the glass scene take ~30 s
     volpath.medium_events, volpath.bounce = counted, counted_bounce
     try:
-        for s in range(2):
-            f_ph = wave(f_ph, s)
-            L, lam, pdf, fw = volpath.trace_wave_vol(tsc, None, fcam, scfg, cfg, pix, s, None,
-                                                     p_isect)
-            f_pl = film_mod.add_samples(f_pl, pix, L, lam, pdf, filter_weight=fw,
-                                        sequential=True)
+        f_ph = wave(f_ph, 0)
+        L, lam, pdf, fw = volpath.trace_wave_vol(tsc, None, fcam, scfg, cfg, pix, 0, None,
+                                                 p_isect)
+        f_pl = film_mod.add_samples(f_pl, pix, L, lam, pdf, filter_weight=fw, sequential=True)
     finally:
         volpath.medium_events, volpath.bounce = events, bounce
     a, b = film_mod.develop(f_ph), film_mod.develop(f_pl)
@@ -923,9 +967,9 @@ def phase_fog(torch, dev, interface, phase: int = 15):
     # the glass scene has no pure interface: each change is a real transmission
     check(interface != "glass" or sum(changed) > 0, f"{label}: no medium change")
     sizes = sorted({n for n, _ in checked.sizes}, reverse=True)
-    print(f"phase {phase}: {label}: phased wave (cuda_bvh4) vs trace_wave_vol (plain), 2 "
-          f"waves: max |diff| {diff:.3g} (atol 1e-5, rtol 1e-5); lane scatterings in the "
-          f"medium {sum(scattered)}, lanes whose medium changed {sum(changed)} (both waves of "
+    print(f"phase {phase}: {label}: phased wave (cuda_bvh4) vs trace_wave_vol (plain), "
+          f"sample 0: max |diff| {diff:.3g} (atol 1e-5, rtol 1e-5); lane scatterings in the "
+          f"medium {sum(scattered)}, lanes whose medium changed {sum(changed)} (the wave of "
           f"each); the kernel held against plain on all {len(checked.sizes)} batches of the "
           f"phased wave (lanes {sizes}), contract met, {checked.ties} tie lanes", flush=True)
 
@@ -1006,36 +1050,39 @@ def phase_materials(torch, dev):
     chunks = torch.arange(R, dtype=torch.int32, device=dev).split(80000)
     mc = tsc.mat_coeffs.detach().clone().requires_grad_(True)
 
-    def grads(isect_):
-        value, g = 0.0, torch.zeros_like(mc)
-        for pix in chunks:
+    def grads(isect_, chunks_):
+        """-> (loss, the gradient of each chunk of lanes)."""
+        value, gs = 0.0, []
+        for pix in chunks_:
             L, lam, pdf, fw = integrator.trace_wave(tsc.replace(mat_coeffs=mc), None, mcam,
                                                     scfg, gcfg, pix, 0, lst, isect_)
             loss = film_mod.add_samples(make_film(), pix, L, lam, pdf,
                                         filter_weight=fw).xyz.sum() / R
-            g += torch.autograd.grad(loss, mc)[0]
+            gs.append(torch.autograd.grad(loss, mc)[0])
             value += float(loss.detach())
-        return value, g
+        return value, gs
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
     reset_counts()
-    g_ms, (value, g_k) = event_ms(torch, lambda: grads(isect))
+    g_ms, (value, gs_k) = event_ms(torch, lambda: grads(isect, chunks))
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() - base_mem
     check(set(counts) == {"bvh4_traverse"}, f"gradient wave launches {counts}")
-    _, g_p = grads(plain)
+    g_k = sum(gs_k)
+    # the plain traversal on the first chunk (~12 s a chunk), against its gradient
+    _, (g_p,) = grads(plain, chunks[:1])
     check(bool(torch.isfinite(g_k).all()), f"{label}: non-finite gradient rows "
           f"{torch.nonzero(~torch.isfinite(g_k).all(-1)).flatten().tolist()}")
-    check(bool(torch.allclose(g_k, g_p, rtol=1e-3, atol=1e-6)),
-          f"{label}: kernel gradient differs from plain by {float((g_k - g_p).abs().max()):.3g}")
+    g_err = float((gs_k[0] - g_p).abs().max())
+    check(bool(torch.allclose(gs_k[0], g_p, rtol=1e-3, atol=1e-6)),
+          f"{label}: kernel gradient differs from plain by {g_err:.3g}")
     rows = [(int(t), f"{float(m):.3g}") for t, m in zip(msc.mat_type, g_k.abs().amax(-1))]
     print(f"phase 16: {label} gradient (one wave, depth 4, RR off, {len(chunks)} chunks of "
           f"{chunks[0].numel()} lanes): loss {value:.6f}; (material tag, max |d/d "
           f"mat_coeffs|) by row {rows}; finite on all {g_k.shape[0]} rows; cuda_bvh4 vs plain "
-          f"traversal "
-          f"max |diff| {float((g_k - g_p).abs().max()):.3g} (rtol 1e-3, atol 1e-6); forward + "
+          f"traversal on the first chunk max |diff| {g_err:.3g} (rtol 1e-3, atol 1e-6); forward + "
           f"backward {g_ms:.1f} ms by CUDA events, peak memory {peak / 2**20:.1f} MiB above "
           f"{base_mem / 2**20:.1f} MiB; {counts['bvh4_traverse']} launches "
           f"[{time.perf_counter() - t0:.0f} s]", flush=True)
@@ -1084,6 +1131,7 @@ def scene_waves(torch, phase, scenes: dict, cam, cfg, scfg, dev, rounds: int = 3
             film = wave(film, 0)  # warm-up
         runs[label] = dict(sc=sc, dbvh=dbvh, isect=isect, wave=wave, film=film, ms=[],
                            launches=0, peak=0, base=None)
+    first = 1 if rounds > 1 else 0  # one round: its wave is sample 0's, checked below
     for r in range(rounds):
         for label, run in runs.items():
             torch.cuda.synchronize()
@@ -1091,7 +1139,7 @@ def scene_waves(torch, phase, scenes: dict, cam, cfg, scfg, dev, rounds: int = 3
             base = torch.cuda.memory_allocated()
             reset_counts()
             run["isect"].n_calls = 0
-            ms, run["film"] = event_ms(torch, lambda: run["wave"](run["film"], 1 + r))
+            ms, run["film"] = event_ms(torch, lambda: run["wave"](run["film"], first + r))
             counts = launch_counts()
             n = counts.get("bvh4_traverse", 0)
             check(set(counts) == {"bvh4_traverse"} and n == run["isect"].n_calls,
@@ -1110,8 +1158,9 @@ def scene_waves(torch, phase, scenes: dict, cam, cfg, scfg, dev, rounds: int = 3
                if profile else None)
         plain = dispatch.make_intersectors(sc, dbvh, dev, backend="plain")
         k_isect = bench_scene.CheckedIntersectors(isect, plain, label) if check_batches else isect
-        f_k = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=k_isect,
-                                      sensor=sensor)(make_film(), 0)
+        f_k = (run["film"] if rounds == 1 and not check_batches else
+               integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=k_isect,
+                                       sensor=sensor)(make_film(), 0))
         f_p = integrator.make_wave_fn(sc, dbvh, cam, scfg, cfg, isect=plain,
                                       sensor=sensor)(make_film(), 0)
         close, rel = film_agreement(f_k.xyz, f_p.xyz)
@@ -1550,7 +1599,7 @@ def phase_scene_input(torch, dev, d) -> tuple:
 
 
 def render_run(torch, label, render, isect, plain_render, t0, unit=None,
-               unit_name="a render"):
+               unit_name="a render", small=None):
     """One render of the integrators phase on the card (render(): an image,
     through `isect`): its seconds by CUDA events, bvh4_traverse launches
     (= isect's traversal calls, no other kernel), peak memory, CUDA kernels
@@ -1558,8 +1607,11 @@ def render_run(torch, label, render, isect, plain_render, t0, unit=None,
     mutation step; None: a second render, whose image must equal the first
     bit for bit for the line's "repeatable"), the image finite with mean > 0, and
     plain_render() (the same seed through the plain traversal) by phase
-    5's rule; the host seconds of the profile and of the plain render end
-    the line -> (image, launches, kernels of the unit)."""
+    5's rule; with `small` ((label, render at a smaller size through
+    intersectors i)), that smaller render through isect against it through
+    plain_render's intersectors instead. The host seconds of the profile and
+    of the plain render end the line -> (image, launches, kernels of the
+    unit)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1578,9 +1630,15 @@ def render_run(torch, label, render, isect, plain_render, t0, unit=None,
     t_prof = time.perf_counter()
     n_k = cuda_kernel_count(torch, unit or (lambda: again.append(render())))
     t_plain = time.perf_counter()
-    img_p = plain_render()
+    img_k, what = img, ""
+    if small is None:
+        img_p = plain_render()
+    else:
+        what, fn = small
+        img_k, img_p = fn(isect), plain_render(fn)
+        what = f" at {what}"
     t_end = time.perf_counter()
-    close, rel = film_agreement(img, img_p)
+    close, rel = film_agreement(img_k, img_p)
     check(close >= 0.995 and rel <= 1e-3, f"{label}: image agrees with the plain traversal's "
           f"on {close:.5f} of pixels, mean rel diff {rel:.3g}")
     repeat = f", repeatable: {bool(torch.equal(again[0], img))}" if again else ""
@@ -1588,7 +1646,7 @@ def render_run(torch, label, render, isect, plain_render, t0, unit=None,
           f"traversal calls, CUDA kernels and copies (torch.profiler) {unit_name}: "
           f"{n_k if n_k is not None else 'not measured'}, peak memory {peak:.1f} MiB above "
           f"{base / 2**20:.1f} MiB; image mean {mean:.6f}{repeat}; the same seed through the "
-          f"plain traversal: {close:.6f} of pixels agree, mean rel diff {rel:.3g} (profile "
+          f"plain traversal{what}: {close:.6f} of pixels agree, mean rel diff {rel:.3g} (profile "
           f"{t_plain - t_prof:.1f} s, plain render {t_end - t_plain:.1f} s) "
           f"[{time.perf_counter() - t0:.0f} s]", flush=True)
     return img, launches, n_k
@@ -1609,6 +1667,7 @@ def phase_integrators(torch, sc, dbvh, cam, dev, ref_xyz, bench_pbrt: str) -> in
     from nn_bvh_tpu_torch.core import colorspace, rng
     from nn_bvh_tpu_torch.geometry import scene as scene_mod
     from nn_bvh_tpu_torch.scatter import lightsamplers
+    from nn_bvh_tpu_torch.tools import bench_scene
     from nn_bvh_tpu_torch.tools.bench_scene import bench_config
     from nn_bvh_tpu_torch.utils import image
     from nn_bvh_tpu_torch.wavefront import bdpt, integrator, lightpath, mlt, sppm
@@ -1660,12 +1719,21 @@ def phase_integrators(torch, sc, dbvh, cam, dev, ref_xyz, bench_pbrt: str) -> in
                                          isect=i),
                 (mlt_step, f"a mutation step's trace of {C:,} chains")),
     }
+    # MLT's plain render at 400x400 took 51-70 s (432 plain traversal calls),
+    # and the whole script ran past the 1,200 s it is allowed on a slower
+    # host: MLT's kernel is held against the plain traversal on a render of
+    # the same seed at MLT_CHECK_RES
+    cam_s = bench_scene.bench_camera(MLT_CHECK_RES)
+    C_s = mlt.chain_counts(1, cam_s.width * cam_s.height)[0]
+    small = {"mlt": (f"{MLT_CHECK_RES}x{MLT_CHECK_RES} ({C_s} chains)",
+                     lambda i: mlt.render_mlt(sc, dbvh, cam_s, spp=1, seed=0, cfg=cfg,
+                                              device=dev, isect=i))}
     means = {}
     for name, (label, fn, unit) in runs.items():
         isect = mlt_isect if name == "mlt" else lightpath.make_intersectors(sc, dbvh, dev)
         check(isect.backend == "cuda_bvh4", f"CUDA picked {isect.backend}")
-        img, n, n_k = render_run(torch, label, lambda: fn(isect), isect, lambda: fn(plain()), t0,
-                                 *unit)
+        img, n, n_k = render_run(torch, label, lambda: fn(isect), isect,
+                                 lambda g=fn: g(plain()), t0, *unit, small=small.get(name))
         total += n
         means[name] = float(img.mean())
         if name == "sppm":
@@ -1992,9 +2060,415 @@ def phase_film_cameras(torch, sc, dbvh, cam, dev, ref_xyz, bench_pbrt: str) -> i
     return total
 
 
+DIST_RES = 128   # 22.2's film side
+CHECK_WAVES = 4  # 22.1's waves through the plain traversal
+
+
+def _last_json(out: str, key: str) -> dict:
+    """The last line of a process's output that is a JSON object with `key`."""
+    for line in reversed(out.splitlines()):
+        if line.startswith("{") and f'"{key}"' in line:
+            return json.loads(line)
+    raise AssertionError(f"no JSON line with {key!r} in:\n{out[-3000:]}")
+
+
+def dist_worker(out_dir: str, device: str | None) -> int:
+    """One rank of 22.2 and 22.5 (run as `chip_smoke.py --worker OUT_DIR
+    [DEVICE]` under torchrun's environment, dist.multihost.run_local): the
+    bench wave's pixel bands at DIST_RES through the rank's card and a gloo
+    gather, then one data-parallel train step and one joint step at phase
+    18's full width. Rank 0 writes the image and the steps' results into
+    OUT_DIR; every rank prints its launches, traversal calls and seconds as
+    one JSON line."""
+    import numpy as np
+    import torch
+
+    t_start = time.perf_counter()
+    from nn_bvh_tpu_torch import devices
+    from nn_bvh_tpu_torch.accel import dispatch
+    from nn_bvh_tpu_torch.dist import multihost, sharding
+    from nn_bvh_tpu_torch.learn import joint, trainer, treenet
+    from nn_bvh_tpu_torch.scatter import lightsamplers
+    from nn_bvh_tpu_torch.geometry import scene as scene_mod
+    from nn_bvh_tpu_torch.core import samplers
+    from nn_bvh_tpu_torch.tools import bench_scene
+    from nn_bvh_tpu_torch.wavefront import integrator
+
+    check(multihost.initialize(timeout_s=300), "the worker joined no process group")
+    mesh = sharding.make_mesh(device=device)
+    dev = mesh.device
+    devices.full_float32()
+    rep = {"rank": mesh.rank, "world_size": mesh.world_size, "device": str(dev),
+           "backend": torch.distributed.get_backend()}
+    sc, dbvh, _ = bench_scene.build_bench_scene()
+    cam = bench_scene.bench_camera(DIST_RES)
+    cfg, scfg = bench_scene.bench_config()
+    isect = dispatch.make_intersectors(sc, dbvh, dev)
+    rep["startup_s"] = time.perf_counter() - t_start
+
+    # 22.2 the rank's band, gathered
+    reset_counts()
+    t0 = time.perf_counter()
+    img = sharding.render_sharded(sc, dbvh, cam, mesh, spp=scfg.spp, sampler="sobol", seed=0,
+                                  cfg=cfg, isect=isect)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    rep["render_s"] = time.perf_counter() - t0
+    rep["render_launches"] = launch_counts().get("bvh4_traverse", 0)
+    rep["render_calls"] = isect.n_calls
+    results = {"image": img.cpu()}
+
+    # 22.5 one data-parallel train step (the whole batch of 8 split 4 + 4)
+    tcfg = treenet.TreeNetConfig()
+    state = trainer.make_train_state(tcfg, seed=0, device=dev)
+    clouds = torch.as_tensor(bench_scene.treenet_scene().next_batch(8), device=dev)
+    t0 = time.perf_counter()
+    state, m = trainer.make_train_step(tcfg, mesh)(state, clouds)
+    results["train"] = {"metrics": {k: float(v) for k, v in m.items()},
+                        "grads": [p.grad.cpu() for p in state.model.parameters()]}
+    rep["train_s"] = time.perf_counter() - t0
+
+    # 22.5 one data-parallel joint step (phase 14's wave, RR off; pixels and clouds split)
+    model = treenet.init_params(tcfg, seed=0, device=dev)
+    rcfg = integrator.IntegratorConfig(max_depth=DEPTH, mis=True, rr_depth=99)
+    jscfg = samplers.make_sampler("sobol", seed=0, spp=16)
+    cam_j = bench_scene.bench_camera()
+    tsc = scene_mod.to_device(sc, dev)
+    lst = lightsamplers.build(tsc, rcfg.light_sampler, dev)
+    jisect = dispatch.make_intersectors(sc, dbvh, dev)
+    pix = torch.arange(cam_j.width * cam_j.height, dtype=torch.int32, device=dev)
+    jclouds = torch.as_tensor(joint.scene_cloud(sc, tcfg.pc_size, batch=8), device=dev)
+    jstate = joint.JointState(model, tsc.mat_coeffs.detach().clone().requires_grad_(True))
+    reset_counts()
+    t0 = time.perf_counter()
+    jstep = joint.make_joint_step(tcfg, cam_j, jscfg, rcfg, mesh=mesh, axis=sharding.RAY_AXIS)
+    new, jm = jstep(jstate, tsc, None, lst, jclouds, pix, 0, jisect)
+    rep["joint_s"] = time.perf_counter() - t0
+    rep["joint_launches"] = launch_counts().get("bvh4_traverse", 0)
+    rep["joint_calls"] = jisect.n_calls
+    results["joint"] = {"metrics": {k: float(v) for k, v in jm.items()},
+                        "params": [p.detach().cpu() for p in new.model.parameters()],
+                        "mat_coeffs": new.mat_coeffs.detach().cpu()}
+    if mesh.rank == 0:
+        torch.save(results, os.path.join(out_dir, "dist.pt"))
+    torch.distributed.barrier()
+    rep["total_s"] = time.perf_counter() - t_start
+    print(json.dumps(rep), flush=True)
+    return 0
+
+
+class _Killed(Exception):
+    """Raised by 22.3's wave callback to stop a render after its checkpoint."""
+
+
+def phase_dist(torch, sc, dbvh, cam, dev, batches, bench_pbrt: str,
+               worker: list | None = None, device_args: tuple = ()) -> int:
+    """Phase 22 (see the module doc) -> bvh4_traverse launches of its main
+    path (22.1, 22.3, 22.7 in this process; 22.2 and 22.5 as the ranks
+    report them). `worker` is the command of 22.2/22.5's ranks (default:
+    this script with --worker) and `device_args` extra CLI arguments of
+    22.4's ranks (a CPU rehearsal passes its own)."""
+    import contextlib
+    import io
+    import math
+
+    import numpy as np
+    from nn_bvh_tpu_torch.accel import build, dispatch, kdtree
+    from nn_bvh_tpu_torch.dist import multihost, sharding
+    from nn_bvh_tpu_torch.geometry import pbrt_parser, scene as scene_mod
+    from nn_bvh_tpu_torch.learn import joint, treenet
+    from nn_bvh_tpu_torch.scatter import lightsamplers
+    from nn_bvh_tpu_torch.core import samplers
+    from nn_bvh_tpu_torch.tools import bench_scene, crown_gate, crown_grad
+    from nn_bvh_tpu_torch.utils import image
+    from nn_bvh_tpu_torch.wavefront import integrator
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    worker = worker or [sys.executable, os.path.abspath(__file__), "--worker"]
+    t0 = time.perf_counter()
+    secs = lambda: f"[{time.perf_counter() - t0:.0f} s]"
+    cfg, scfg = bench_scene.bench_config()
+    spp = scfg.spp
+    mesh = sharding.make_mesh(device=dev)
+    check(mesh.world_size == 1, f"22: this process's mesh {mesh}")
+    total = 0
+
+    def sharded(backend, cam_=cam, stop=None, **kw):
+        """render_sharded at world size 1 through `backend`, stopped after
+        `stop` waves if given -> (image or None when stopped, the band's xyz
+        after the last wave run, ms a wave (median of the waves after the
+        first, CUDA events), launches, traversal calls, the band's xyz
+        after CHECK_WAVES waves)."""
+        isect = dispatch.make_intersectors(sc, dbvh, dev, backend=backend)
+        marks, last = [], {}
+        user_cb = kw.pop("wave_callback", None)
+
+        def cb(s, xyz, w):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            last["xyz"] = xyz
+            if s + 1 == CHECK_WAVES:
+                last["early"] = xyz.clone()
+            if user_cb is not None:
+                user_cb(s, xyz, w)
+            if s + 1 == stop:
+                raise _Killed
+
+        reset_counts()
+        img = None
+        try:
+            img = sharding.render_sharded(sc, dbvh, cam_, mesh, spp=spp, sampler="sobol",
+                                          seed=0, cfg=cfg, wave_callback=cb, isect=isect, **kw)
+        except _Killed:
+            pass
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        waves = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        ms = float(np.median(waves)) if waves else float("nan")
+        return img, last["xyz"], ms, counts, isect.n_calls, last.get("early")
+
+    # 22.1 world size 1 at full width, kernel against plain: the plain
+    # traversal takes ~2 s a wave on the card, so it runs the first
+    # CHECK_WAVES waves of the same render and is held against the kernel's
+    # film after as many
+    img_k, _, ms_k, counts, calls, early_k = sharded("cuda_bvh4")
+    launches = counts.get("bvh4_traverse", 0)
+    check(launches == calls > 0 and set(counts) == {"bvh4_traverse"},
+          f"22.1: launches {counts}, {calls} traversal calls")
+    total += launches
+    _, xyz_p, ms_p, _, _, _ = sharded("plain", stop=CHECK_WAVES)
+    close, rel = film_agreement(early_k, xyz_p)
+    check(close >= 0.995 and rel <= 1e-3,
+          f"22.1: film XYZ agrees with the plain traversal's on {close:.5f} of pixels, mean "
+          f"rel diff {rel:.3g}")
+    mean = float(img_k.mean())
+    check(bool(torch.isfinite(img_k).all()) and mean > 0, f"22.1: bad image, mean {mean}")
+    print(f"phase 22.1: render_sharded, world size 1 ({cam.width}x{cam.height}, depth {DEPTH}, "
+          f"Sobol {spp} spp, cuda_bvh4): {ms_k:.1f} ms a wave (median of {spp - 1} waves by "
+          f"CUDA events; the plain traversal {ms_p:.1f}, median of {CHECK_WAVES - 1}), "
+          f"{launches} launches = traversal calls; film XYZ after {CHECK_WAVES} waves vs the "
+          f"plain traversal's: {close:.6f} of pixels, mean rel diff {rel:.3g}; image mean "
+          f"{mean:.6f} {secs()}", flush=True)
+
+    # 22.3 a render state saved after 8 of 16 waves, resumed
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "state")
+
+        def save_after_8(s, xyz, w):
+            if s == 7:
+                multihost.save_render_state(ck, xyz, w, s + 1, mesh=mesh)
+
+        sharded("cuda_bvh4", wave_callback=save_after_8, stop=8)
+        total += launch_counts().get("bvh4_traverse", 0)
+        xyz0, w0, nxt, _ = multihost.load_render_state(ck, mesh=mesh)
+        nbytes = os.path.getsize(ck + ".proc0.npz")
+        img_r, _, _, counts, _, _ = sharded("cuda_bvh4", film_state=(xyz0, w0),
+                                            start_sample=nxt)
+        total += counts.get("bvh4_traverse", 0)
+    check(nxt == 8 and torch.equal(img_r, img_k),
+          f"22.3: resumed at {nxt}, max |diff| {float((img_r - img_k).abs().max())}")
+    print(f"phase 22.3: render state after 8 of {spp} waves ({nbytes} bytes, "
+          f"{ck.rsplit(os.sep, 1)[-1]}.proc0.npz), resumed: image bit-equal to 22.1's {secs()}",
+          flush=True)
+
+    # 22.2 + 22.5: two ranks on this card (gloo)
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        outs = multihost.run_local(worker + [d] + ([str(dev)] if dev.type != "cuda" else []),
+                                   2, timeout_s=600, cwd=repo)
+        wall = time.perf_counter() - t1
+        for r, (rc, out) in enumerate(outs):
+            check(rc == 0, f"22.2: rank {r} failed:\n{out[-3000:]}")
+        reps = [_last_json(out, "rank") for _, out in outs]
+        res = torch.load(os.path.join(d, "dist.pt"))
+    for r in reps:
+        check(r["world_size"] == 2 and r["backend"] == "gloo"
+              and r["render_launches"] == r["render_calls"] > 0
+              and r["joint_launches"] == r["joint_calls"] > 0, f"22.2: rank report {r}")
+        total += r["render_launches"] + r["joint_launches"]
+    cam_d = bench_scene.bench_camera(DIST_RES)
+    img_1, _, ms_1, counts, _, _ = sharded("cuda_bvh4", cam_=cam_d)
+    total += counts.get("bvh4_traverse", 0)
+    img_2 = res["image"].to(dev)
+    bit = torch.equal(img_2, img_1)
+    close, rel = film_agreement(img_2.reshape(-1, 3), img_1.reshape(-1, 3))
+    check(close >= 0.995 and rel <= 1e-3,
+          f"22.2: the gathered image agrees with world size 1's on {close:.5f} of pixels, "
+          f"mean rel diff {rel:.3g}")
+    print(f"phase 22.2: two processes on one card, gloo, {DIST_RES}x{DIST_RES} x {spp} spp: "
+          f"{wall:.1f} s of wall time with each process's start-up (rank start-up "
+          f"{[round(r['startup_s'], 1) for r in reps]} s, render "
+          f"{[round(r['render_s'], 2) for r in reps]} s), bvh4_traverse launches "
+          f"{[r['render_launches'] for r in reps]} = traversal calls; gathered image "
+          f"{'bit-equal to' if bit else 'against'} world size 1's ({close:.6f} of pixels, mean "
+          f"rel diff {rel:.3g}; world size 1 {ms_1:.1f} ms a wave) {secs()}", flush=True)
+
+    # 22.5 against the single-process step (phase 18's rule)
+    tcfg = treenet.TreeNetConfig()
+    model = treenet.init_params(tcfg, seed=0, device=dev)
+    clouds = torch.as_tensor(bench_scene.treenet_scene().next_batch(8), device=dev)
+    loss, _ = treenet.loss_fn(model, tcfg, clouds)
+    whole = torch.autograd.grad(loss, list(model.parameters()))
+    tm = res["train"]["metrics"]
+    err = max(max_rel_to_max(g.to(dev), 2 * w) for g, w in zip(res["train"]["grads"], whole))
+    loss = float(loss.detach())
+    check(abs(tm["loss"] - loss) <= 1e-4 * abs(loss),
+          f"22.5: DP loss {tm['loss']} vs {loss}")
+    check(err <= 1e-3, f"22.5: DP gradients differ from the single process's by {err:.3g}")
+    # the joint step: the halves' losses averaged, their gradients summed
+    model = treenet.init_params(tcfg, seed=0, device=dev)
+    rcfg = integrator.IntegratorConfig(max_depth=DEPTH, mis=True, rr_depth=99)
+    jscfg = samplers.make_sampler("sobol", seed=0, spp=16)
+    tsc = scene_mod.to_device(sc, dev)
+    lst = lightsamplers.build(tsc, rcfg.light_sampler, dev)
+    isect = dispatch.make_intersectors(sc, dbvh, dev)
+    jclouds = torch.as_tensor(joint.scene_cloud(sc, tcfg.pc_size, batch=8), device=dev)
+    pix = torch.arange(cam.width * cam.height, dtype=torch.int32, device=dev)
+    mc = tsc.mat_coeffs.detach().clone().requires_grad_(True)
+    loss_fn = joint.make_joint_loss(tcfg, cam, jscfg, rcfg)
+    params = list(model.parameters())
+    halves = []
+    for r in range(2):
+        h = pix.shape[0] // 2
+        lj, aux = loss_fn(joint.JointState(model, mc), tsc, None, lst, jclouds[4 * r:4 * r + 4],
+                          pix[r * h:(r + 1) * h], 0, isect)
+        halves.append((lj.item(), torch.autograd.grad(lj, params + [mc])))
+    lj = sum(h[0] for h in halves) / 2
+    gsum = [a + b for a, b in zip(halves[0][1], halves[1][1])]
+    jmet = res["joint"]["metrics"]
+    check(abs(jmet["loss"] - lj) <= 1e-4 * abs(lj), f"22.5: DP joint loss {jmet['loss']} vs {lj}")
+    lr = 1e-3
+    jerr = 0.0
+    for p0, g, new in zip(params + [mc], gsum, res["joint"]["params"] + [res["joint"]["mat_coeffs"]]):
+        step_ref = -lr * g
+        slack = 4 * torch.finfo(torch.float32).eps * float(p0.detach().abs().max())
+        e = (float(((new.to(dev) - p0.detach()) - step_ref).abs().max()) - slack) / max(
+            float(step_ref.abs().max()), 1e-30)
+        jerr = max(jerr, e)
+    check(jerr <= 1e-3, f"22.5: DP joint step differs from the single process's by {jerr:.3g}")
+    gn = math.sqrt(sum(float((g * g).sum()) for g in gsum[:-1]))
+    print(f"phase 22.5: data-parallel steps on two ranks of one card (gloo): train step "
+          f"(levels {tcfg.levels}, capacity {tcfg.capacity}, {tcfg.pc_size} prims, batch 8 as "
+          f"4 + 4) {[round(r['train_s'], 3) for r in reps]} s, loss {tm['loss']:.7g} vs one "
+          f"process {float(loss):.7g}, gradients (the ranks' sum, as JAX's step) within "
+          f"{err:.3g} of twice the single process's; joint step (bench wave {cam.width}x"
+          f"{cam.height} as two bands, depth {DEPTH}, RR off) {[round(r['joint_s'], 3) for r in reps]}"
+          f" s, {[r['joint_launches'] for r in reps]} launches = traversal calls, loss "
+          f"{jmet['loss']:.7g} vs {lj:.7g}, update within {jerr:.3g} of the halves' (phase 18's "
+          f"rule), gnorm_tree {jmet['gnorm_tree']:.6g} vs {gn:.6g} {secs()}", flush=True)
+
+    # 22.4 cli.render --sharded on the bench pbrt scene, two ranks
+    with tempfile.TemporaryDirectory() as d:
+        out2 = os.path.join(d, "two.pfm")
+        t1 = time.perf_counter()
+        outs = multihost.run_local(
+            [sys.executable, "-m", "nn_bvh_tpu_torch.cli.render", bench_pbrt, "--sharded",
+             "--res", f"{DIST_RES}x{DIST_RES}", "--spp", "4", "--outfile", out2, "--stats",
+             *device_args], 2, timeout_s=600, cwd=repo)
+        wall = time.perf_counter() - t1
+        for r, (rc, out) in enumerate(outs):
+            check(rc == 0, f"22.4: rank {r} failed:\n{out[-3000:]}")
+        check(["wrote" in out for _, out in outs] == [True, False],
+              "22.4: rank 0, and only rank 0, writes the image")
+        stats = _last_json(outs[0][1], "render_s")
+        got = image.read_pfm(out2)
+    psc, pdbvh, pcam, pres = pbrt_parser.load_scene(bench_pbrt)
+    pcam = pcam._replace(width=DIST_RES, height=DIST_RES)
+    ccfg = integrator.IntegratorConfig(max_depth=pres.max_depth, mis=True, kind="path",
+                                       rr_depth=2, sample_lights=True)
+    reset_counts()
+    want = sharding.render_sharded(psc, pdbvh, pcam, mesh, spp=4, sampler="sobol",
+                                   cfg=ccfg).cpu().numpy()
+    total += launch_counts().get("bvh4_traverse", 0)
+    close, rel = film_agreement(torch.as_tensor(got).reshape(-1, 3),
+                                torch.as_tensor(want).reshape(-1, 3))
+    check(close >= 0.995 and rel <= 1e-3 and np.isfinite(got).all() and got.mean() > 0,
+          f"22.4: the CLI's image against world size 1's: {close:.5f} of pixels, {rel:.3g}")
+    print(f"phase 22.4: cli.render --sharded on the bench .pbrt, two ranks, {DIST_RES}x"
+          f"{DIST_RES} x 4 spp: {wall:.1f} s of wall time; rank 0's stats {json.dumps(stats)}; "
+          f"its PFM {'bit-equal to' if np.array_equal(got, want) else 'against'} "
+          f"render_sharded at world size 1 ({close:.6f} of pixels, mean rel diff {rel:.3g}) "
+          f"{secs()}", flush=True)
+
+    # 22.6 the kd-tree on the bench geometry against bvh4_traverse
+    tri = scene_mod.host(sc.tri_p)[:sc.n_tris]
+    t1 = time.perf_counter()
+    kt = kdtree.build_kdtree(*build.triangle_bounds(tri))
+    build_s = time.perf_counter() - t1
+    o, dd, t_max = batches["incoherent"]
+    tp = torch.as_tensor(tri, device=dev)
+    k_isect = dispatch.make_intersectors(sc, dbvh, dev, backend="cuda_bvh4")
+    kern = lambda any_hit: k_isect.fn(*k_isect.tables, o, dd, t_max, any_hit)
+    st_c, st_a = {}, {}
+    kdtree.intersect_closest(kt, tp, o, dd, t_max)  # warm-up
+    ms_c, hk = event_ms(torch, lambda: kdtree.intersect_closest(kt, tp, o, dd, t_max, stats=st_c))
+    ms_a, occ_k = event_ms(torch, lambda: kdtree.intersect_any(kt, tp, o, dd, t_max, stats=st_a))
+    hb, occ_b = kern(False), kern(True)
+    ms_b = bench_scene.device_ms(lambda: kern(False))
+    ms_ba = bench_scene.device_ms(lambda: kern(True))
+    reset_counts()  # bvh4_traverse ran here only as the kd-tree's reference
+    M, scan = len(kt.prim_idx), kdtree.scan_width(kt)
+    unscanned = set()
+    for leaf in kdtree.clamped_leaves(kt):
+        first, count = int(kt.node_data[leaf, 2]), int(kt.node_data[leaf, 3])
+        unscanned |= (set(kt.prim_idx[first:first + count].tolist())
+                      - set(kt.prim_idx[M - scan:M - scan + count].tolist()))
+    live = t_max > 0
+    diff = live & (hk.prim != hb.prim)
+    tie = diff & (hk.prim >= 0) & (hb.prim >= 0) & (hk.t == hb.t)
+    clamp = diff & ~tie & torch.isin(hb.prim, torch.as_tensor(sorted(unscanned) or [-2],
+                                                               device=dev, dtype=hb.prim.dtype))
+    same = live & (hk.prim == hb.prim) & (hb.prim >= 0)
+    check(int((diff & ~tie & ~clamp).sum()) == 0,
+          f"22.6: closest prim differs on {int((diff & ~tie & ~clamp).sum())} lanes")
+    check(torch.equal(hk.t[same], hb.t[same]), "22.6: t differs on lanes of equal prim")
+    check(bool((hk.prim[~live] == -1).all()), "22.6: a dead lane hit")
+    odiff = live & (occ_k != occ_b)
+    ocl = int((odiff & clamp).sum())
+    check(int(odiff.sum()) == ocl, f"22.6: occlusion differs on {int(odiff.sum())} live lanes")
+    print(f"phase 22.6: kd-tree on the bench geometry ({sc.n_tris} triangles): host build "
+          f"{build_s:.2f} s, {kt.n_nodes} nodes, max_leaf {kt.max_leaf} (scan {scan}), "
+          f"{len(kdtree.clamped_leaves(kt))} clamped leaves; on phase 3's incoherent batch "
+          f"({o.shape[0]} rays, {int(live.sum())} live): closest {ms_c:.2f} ms, {st_c['steps']} "
+          f"lockstep steps, {st_c['lane_steps']} lane-steps; any-hit {ms_a:.2f} ms, "
+          f"{st_a['steps']} steps (CUDA events, one call each); bvh4_traverse {ms_b:.4f} / "
+          f"{ms_ba:.4f} ms (device_ms); prims equal to bvh4_traverse's but {int(tie.sum())} "
+          f"tie lanes and {int(clamp.sum())} lanes of the mirrored clamped scan, t bit-equal "
+          f"on equal prims, occlusion equal on live lanes but {ocl} clamp lanes {secs()}",
+          flush=True)
+
+    # 22.7 crown_grad's check on the bench .pbrt; host-only, crown_gate on the committed EXRs
+    reset_counts()
+    t1 = time.perf_counter()
+    g = crown_grad.grad_check(bench_pbrt, res=64, device=dev, mat_id=0, rr_depth=99)
+    counts = launch_counts()
+    check(g["value"] < crown_grad.GATE and max(abs(x) for x in g["grad_fd"]) > 0
+          and counts.get("bvh4_traverse", 0) > 0 and set(counts) == {"bvh4_traverse"},
+          f"22.7: crown_grad {g}, launches {counts}")
+    total += counts["bvh4_traverse"]
+    g_rr = crown_grad.grad_check(bench_pbrt, res=64, device=dev, mat_id=0)  # printed, not held
+    buf = io.StringIO()
+    ours = os.path.join(repo, "data", "golden", "crown-ours-volpath-250x350-64spp.exr")
+    with contextlib.redirect_stdout(buf):
+        rc = crown_gate.main(["--use-existing", "--no-copy", "--ours", ours])
+    check(rc == 0 and "GATE: PASS" in buf.getvalue(), f"22.7: crown_gate {buf.getvalue()}")
+    print(f"phase 22.7: crown_grad.grad_check on the bench .pbrt at 64x64 (paint, material 0, "
+          f"Russian roulette off as phase 14): {json.dumps(g)} [{time.perf_counter() - t1:.1f} "
+          f"s], {counts['bvh4_traverse']} launches; with the integrator's roulette (central "
+          f"differences across its jumps; printed, not held) {g_rr['value']:.4g}; host-only "
+          f"(numpy, no render of the port): crown_gate --use-existing on the committed EXRs: "
+          f"{' | '.join(buf.getvalue().strip().splitlines())}", flush=True)
+    print(f"phase 22: done in {time.perf_counter() - t0:.0f} s, {total} bvh4_traverse launches",
+          flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 2 and sys.argv[1] == "--worker":
+        return dist_worker(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2003,6 +2477,14 @@ def main() -> int:
 
 
     dev = torch.device("cuda", 0)
+    t_run = [time.perf_counter()] * 2  # the run's start, the last lap's end
+
+    def lap(label):
+        now = time.perf_counter()
+        print(f"{label}: {now - t_run[1]:.1f} s, {now - t_run[0]:.1f} s into the run",
+              flush=True)
+        t_run[1] = now
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -2021,6 +2503,7 @@ def main() -> int:
         for line in kernels.ptxas_lines(log):
             print(f"phase 2: {name}: {line}")
         check(kernels.spill_bytes(log) == 0, f"{name} spills: {kernels.ptxas_lines(log)}")
+    lap("phases 1-2")
 
     t0 = time.perf_counter()
     sc, dbvh, cam = bench_scene.build_bench_scene()
@@ -2040,6 +2523,7 @@ def main() -> int:
             rows[name]["launches"] = phase_main_path(torch, sc, dbvh, cam, dev)
             ref_film = phase_same_seed(torch, sc, dbvh, cam, dev)
     phase_deep_tree(torch, dev, R)
+    lap("phases 3-7")
 
     for name, backend, *_ in KERNELS[1:]:
         xyz, counts, calls, sec = one_wave(torch, sc, dbvh, cam, dev, backend)
@@ -2056,6 +2540,7 @@ def main() -> int:
               f"traversal calls, film vs cuda_bvh4: {close:.6f} of pixels, mean rel "
               f"diff {rel:.3g}")
 
+    lap("phase 8")
     out = []
     o, d, t_max = batches["incoherent"]
     for name, backend, plain, source, replaces in KERNELS:
@@ -2069,23 +2554,36 @@ def main() -> int:
                     "ms": rep["kernel"], "plain_ms": rep["plain"], "bound_ms": bound,
                     "bound_by": by, "library_ms": None})
     lab_launches = phase_lab_main_path(torch)
+    lap("phases 9-10")
     lab_rows = phase_lab_variants(torch, sc, dbvh, cam, dev)
+    lap("phases 11-12")
     for name, replaces in LAB_REPLACES.items():
         out.append({"name": name, "route": "cuda", "source": LAB_SOURCE, "replaces": replaces,
                     "launches": lab_launches[name], **lab_rows[name], "library_ms": None})
     phase_wave_batches(torch, sc, dbvh, cam, dev)
+    lap("phase 13")
     phase_gradients(torch, sc, dbvh, cam, dev)
+    lap("phase 14")
     phase_volpath(torch, sc, dbvh, cam, dev)
+    lap("phase 15")
     phase_materials(torch, dev)
+    lap("phase 16")
     out[0]["launches"] += phase_lights(torch, dev)
+    lap("phase 17")
     out[0]["launches"] += phase_learner(torch, sc, dbvh, cam, dev, ref_film)
+    lap("phase 18")
     with tempfile.TemporaryDirectory() as d:
         launches, paths = phase_scene_input(torch, dev, d)
         out[0]["launches"] += launches
+        lap("phase 19")
         out[0]["launches"] += phase_integrators(torch, sc, dbvh, cam, dev, ref_film,
                                                 paths["bench"])
+        lap("phase 20")
         out[0]["launches"] += phase_film_cameras(torch, sc, dbvh, cam, dev, ref_film,
                                                  paths["bench"])
+        lap("phase 21")
+        out[0]["launches"] += phase_dist(torch, sc, dbvh, cam, dev, batches, paths["bench"])
+        lap("phase 22")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

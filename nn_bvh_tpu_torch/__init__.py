@@ -32,13 +32,18 @@ sampler and sampler kind, quadrics, motion blur, textures and media; every
 camera (perspective, orthographic, spherical, realistic) and the film
 surface (white-balanced and measured sensors, the spectral film, the
 G-buffer); every traversal backend of the JAX package (BVH4, binary,
-deep-stack binary, BVH8) as a CUDA kernel; gradients of shading with
+deep-stack binary, BVH8) as a CUDA kernel, and the SAH kd-tree aggregate
+(`accel/kdtree.py`, a plain torch walk); gradients of shading with
 respect to material and light parameters by autograd; the treeNet split
 learner with the joint render+train step (`learn/`; randomness there
 comes from a torch.Generator seeded by the caller); scene input (the pbrt
 parser with PLY, Loop subdivision and curves, the native SAH builder in
 `native/`); the CLIs (`cli/`: render, train, tree_bench, imgtool, pspec,
 format), `utils/` (image I/O, noise, stats, the tev display client) and
-the tools (`tools/`). The sharded render and data-parallel training
-(ROADMAP queue 1, item 7) raise NotImplementedError naming that item.
+the tools (`tools/`, the reference-bound crown and probe tools among
+them); and `dist/` on torch.distributed: the pixel-band sharded render,
+render-state checkpoints and data-parallel train and joint steps, under
+`cli.render --sharded` and `cli.train --dp`. The JAX package's
+`utils/cache.py` and `utils/pytree.py` configure JAX (its compile cache,
+its pytree registration) and have no counterpart.
 """

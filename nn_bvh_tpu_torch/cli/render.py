@@ -6,7 +6,7 @@ Usage:
         [--integrator path|simplepath|volpath|randomwalk|ao|lightpath|bdpt|mlt]
         [--maxdepth N] [--sampler s] [--seed N] [--res WxH] [--quick] [--stats]
         [--pixelstats PREFIX] [--mse-reference-image ref] [--write-partial-images]
-        [--display-server host[:port]] [--device cuda|cpu]
+        [--display-server host[:port]] [--device cuda|cpu] [--sharded]
 
 The flags, the integrator and sampler mapping and the output format by
 extension (.png, .pfm, else EXR) are the JAX CLI's: randomwalk and ao
@@ -31,8 +31,14 @@ tev viewer (utils/display.py); --write-partial-images writes waves 1, 3,
 data/named_spectra.npz renders through that measured sensor, and
 "whitebalance" through its white balance (ParseResult.make_sensor). The
 camera is perspective whatever the scene's Camera names, as in the JAX
-CLI. Not ported yet, and raising NotImplementedError: --sharded (ROADMAP
-queue 1, item 7).
+CLI. --sharded joins torchrun's process group (dist.multihost.initialize,
+gloo) and, when it has more than one rank, renders the pixel bands over
+the ranks (dist.sharding.render_sharded: the Path wave whatever the
+integrator, as the JAX CLI does over more than one device), each rank on
+its card (LOCAL_RANK modulo the visible cards) or on the CPU with
+--device cpu; at world size 1 it renders as without the flag. Only rank 0
+writes the image and prints the stats, pixel stats and MSE lines:
+    torchrun --nproc_per_node=2 -m nn_bvh_tpu_torch.cli.render scene.pbrt --sharded
 """
 
 from __future__ import annotations
@@ -70,10 +76,22 @@ def main(argv=None):
     ap.add_argument("--write-partial-images", action="store_true")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
+    if not args.sharded:
+        return _render(args, None)
+    import torch
 
-    if args.sharded:
-        raise NotImplementedError("--sharded is not ported yet (ROADMAP queue 1, item 7: dist/)")
+    from ..dist import multihost, sharding
 
+    joined = multihost.initialize()
+    try:
+        return _render(args, sharding.make_mesh(device=args.device))
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _render(args, mesh):
+    """main's render on `mesh` (None without --sharded)."""
     import numpy as np
     import torch
 
@@ -83,7 +101,8 @@ def main(argv=None):
     from ..utils import image as image_mod
     from ..wavefront import camera as camera_mod, film as film_mod, integrator
 
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    sharded = mesh is not None and mesh.world_size > 1
     t0 = time.time()
     res = pbrt_parser.parse_file(args.scene)
     t_parse = time.time()
@@ -133,7 +152,12 @@ def main(argv=None):
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t1 = time.time()
-    if integ == "bdpt":
+    if sharded:
+        from ..dist import sharding
+
+        img = sharding.render_sharded(sc, dbvh, cam, mesh, spp=spp, sampler=sampler,
+                                      seed=args.seed, cfg=cfg)
+    elif integ == "bdpt":
         from ..wavefront import bdpt
 
         img = bdpt.render_bdpt(sc, dbvh, cam, spp=spp, seed=args.seed, cfg=cfg, device=device)
@@ -154,6 +178,8 @@ def main(argv=None):
     t2 = time.time()
     if tev is not None:
         tev.close()
+    if sharded and mesh.rank != 0:
+        return arr
 
     out = args.outfile or res.filename
     if out.endswith(".png"):

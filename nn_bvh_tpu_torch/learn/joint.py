@@ -11,9 +11,13 @@ Gradient topology:
   SGD update. The forward render traverses a BVH whose top came from an
   earlier treeNet prediction, rebuilt on the host between outer steps
   (rebuild_scene_with_predicted_tree).
-
-Sharding the step over a mesh waits for the port of dist/ (ROADMAP queue
-1, item 7).
+- Over a mesh (dist.sharding.make_mesh) each rank takes its share of the
+  clouds and of pixel_idx; the loss and the aux terms are averaged over
+  the ranks and both gradient sets summed before the update, as the JAX
+  package's shard-mapped step computes them (its pmean of gradients that
+  shard_map has already summed). A rank's image loss is its band's film
+  sum over the full H*W, so the averaged image term is 1/n of the
+  single-process one. Both mirrored (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..dist import sharding
 from ..geometry import scene as scene_mod
 from ..wavefront import film as film_mod, integrator
 from . import data as nn_data, export as nn_export, treenet
@@ -50,12 +55,6 @@ def scene_cloud(scene, pc_size: int, batch: int, seed: int = 0) -> np.ndarray:
 class JointState(NamedTuple):
     model: treenet.TreeNet     # the tree weights (the JAX package's tree_params)
     mat_coeffs: torch.Tensor   # (M, 3) leaf tensor with requires_grad
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("the joint step over a mesh is not ported yet "
-                                  "(ROADMAP queue 1, item 7: dist/)")
 
 
 def make_joint_loss(tree_cfg: treenet.TreeNetConfig, cam, sampler_cfg, render_cfg,
@@ -87,21 +86,34 @@ def make_joint_loss(tree_cfg: treenet.TreeNetConfig, cam, sampler_cfg, render_cf
     return loss_fn
 
 
-def make_joint_step(tree_cfg, cam, sampler_cfg, render_cfg, mesh=None, lr: float = 1e-3,
-                    tree_weight: float = 1.0, target=None):
+def make_joint_step(tree_cfg, cam, sampler_cfg, render_cfg, mesh: sharding.Mesh | None = None,
+                    axis: str = sharding.RAY_AXIS, lr: float = 1e-3, tree_weight: float = 1.0,
+                    target=None):
     """-> step(state, scene, dbvh, ls_tables, clouds, pixel_idx, sample_idx,
     isect=None) -> (state', metrics). Plain SGD: the tree weights are updated
-    in place (as torch.optim does), mat_coeffs becomes a new leaf."""
-    _no_mesh(mesh)
+    in place (as torch.optim does), mat_coeffs becomes a new leaf. With a
+    mesh, `clouds` and `pixel_idx` are the whole batch and the step takes
+    this rank's share of each; `axis` is the JAX package's mesh axis name,
+    and the port's group has the one, sharding.RAY_AXIS."""
+    if axis != sharding.RAY_AXIS:
+        raise ValueError(f"the mesh's one axis is {sharding.RAY_AXIS!r}, not {axis!r}")
     loss_fn = make_joint_loss(tree_cfg, cam, sampler_cfg, render_cfg, tree_weight, target)
 
     def step(state: JointState, scene, dbvh, ls_tables, clouds, pixel_idx, sample_idx,
              isect=None):
+        if mesh is not None:
+            clouds = sharding.local_rows(clouds, mesh)
+            pixel_idx = sharding.local_rows(pixel_idx, mesh)
         params = list(state.model.parameters())
         loss, aux = loss_fn(state, scene, dbvh, ls_tables, clouds, pixel_idx, sample_idx, isect)
         grads = torch.autograd.grad(loss, params + [state.mat_coeffs], allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params + [state.mat_coeffs], grads)]
+        if mesh is not None:
+            loss, image_loss, tree_loss = sharding.pmean(
+                [loss, aux["image_loss"], aux["tree_loss"]], mesh)
+            aux = {"image_loss": image_loss, "tree_loss": tree_loss}
+            grads = sharding.psum(grads, mesh)
         g_tree, g_mat = grads[:-1], grads[-1]
         with torch.no_grad():
             for p, g in zip(params, g_tree):

@@ -10,8 +10,15 @@ nn_bvh_tpu/learn/trainer.py).
   fast-forwarded by replaying its batches. The JAX package's pickles need
   optax to unpickle, so the port does not read them; weights cross through
   numpy (treenet.params_from_jax).
-- Data parallelism over a device mesh waits for the port of dist/ (ROADMAP
-  queue 1, item 7).
+- Data parallelism over a mesh (dist.sharding.make_mesh): each rank takes
+  its share of the batch; after backward the gradients are summed over
+  the ranks and the loss and the metrics averaged, then Adam steps. The
+  sum mirrors the JAX package: its step pmeans gradients that shard_map
+  has already summed (the transpose of the replicated params' broadcast
+  is a psum), so it applies the sum of the shards' gradients (ROADMAP
+  queue 3). The weights start equal on every rank because every rank
+  draws them from the same seed (init_params' CPU generator). Only rank 0
+  writes checkpoints and calls the callback.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..dist import sharding
 from . import treenet
 from .treenet import TreeNetConfig
 
@@ -31,12 +39,6 @@ class TrainState(NamedTuple):
     model: treenet.TreeNet
     optimizer: torch.optim.Optimizer
     step: int
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training over a mesh is not ported yet "
-                                  "(ROADMAP queue 1, item 7: dist/)")
 
 
 def make_optimizer(model: treenet.TreeNet, cfg: TreeNetConfig) -> torch.optim.Adam:
@@ -51,17 +53,27 @@ def make_train_state(cfg: TreeNetConfig, seed: int = 0, device=None) -> TrainSta
     return TrainState(model, make_optimizer(model, cfg), 0)
 
 
-def make_train_step(cfg: TreeNetConfig, mesh=None):
+def make_train_step(cfg: TreeNetConfig, mesh: sharding.Mesh | None = None):
     """-> train_step(state, clouds) -> (state, metrics): one Adam step on
-    the model in place, the state's step advanced."""
-    _no_mesh(mesh)
+    the model in place, the state's step advanced. With a mesh, `clouds`
+    is the whole batch: this rank trains on its share; the gradients (left
+    in each parameter's .grad) are their sums over the ranks, the loss and
+    the metrics their means."""
 
     def train_step(state: TrainState, clouds: torch.Tensor):
+        if mesh is not None:
+            clouds = sharding.local_rows(clouds, mesh)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = treenet.loss_fn(state.model, cfg, clouds)
         loss.backward()
-        state.optimizer.step()
         metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
+        if mesh is not None:
+            params = [p for p in state.model.parameters() if p.grad is not None]
+            for p, g in zip(params, sharding.psum([p.grad for p in params], mesh)):
+                p.grad.copy_(g)
+            names = sorted(metrics)
+            metrics = dict(zip(names, sharding.pmean([metrics[k] for k in names], mesh)))
+        state.optimizer.step()
         return state._replace(step=state.step + 1), metrics
 
     return train_step
@@ -72,8 +84,12 @@ def train(cfg: TreeNetConfig, scene, n_steps: int = 100, batch_size: int = 8, se
           mesh=None, callback=None, device=None):
     """Training loop -> (state, history). History rows hold the metrics as
     floats, in sorted key order (as the JAX package's jitted dicts come
-    back), and the step."""
-    _no_mesh(mesh)
+    back), and the step. With a mesh every rank draws the same batches
+    (the stream is deterministic) and trains on its share of each, on the
+    mesh's device unless `device` is given."""
+    if mesh is not None and device is None:
+        device = mesh.device
+    lead = mesh is None or mesh.rank == 0
     state = make_train_state(cfg, seed, device)
     dev = next(state.model.parameters()).device
     start = 0
@@ -83,7 +99,7 @@ def train(cfg: TreeNetConfig, scene, n_steps: int = 100, batch_size: int = 8, se
         # fast-forward the deterministic stream by replaying its batches
         for _ in range(start):
             scene.next_batch(batch_size)
-    step = make_train_step(cfg)
+    step = make_train_step(cfg, mesh)
     history = []
     for i in range(start, n_steps):
         clouds = torch.as_tensor(scene.next_batch(batch_size), device=dev)
@@ -92,11 +108,11 @@ def train(cfg: TreeNetConfig, scene, n_steps: int = 100, batch_size: int = 8, se
             m = {k: float(metrics[k]) for k in sorted(metrics)}
             m["step"] = i + 1
             history.append(m)
-            if callback is not None:
+            if callback is not None and lead:
                 callback.on_log(state, metrics)
-        if checkpoint_dir and (i + 1) % checkpoint_window == 0:
+        if checkpoint_dir and lead and (i + 1) % checkpoint_window == 0:
             save_checkpoint(checkpoint_dir, state)
-    if checkpoint_dir:
+    if checkpoint_dir and lead:
         save_checkpoint(checkpoint_dir, state)
     return state, history
 

@@ -2,8 +2,7 @@
 nn_bvh_tpu/wavefront/film.py): the RGB film with its PixelSensor (white
 balance, output color space) and measured camera sensors, and the spectral
 film. A Film is a NamedTuple of tensors; `add_samples` returns a new Film,
-like the JAX function. Sensors are host numpy; `merge` (the sharded
-render's) is not ported yet (ROADMAP queue 1, item 7)."""
+like the JAX function. Sensors are host numpy."""
 
 from __future__ import annotations
 
@@ -132,6 +131,15 @@ def add_samples(film: Film, pixel_idx: torch.Tensor, L, lam, lam_pdf,
     idx = pixel_idx.long()
     return film._replace(xyz=film.xyz.index_add(0, idx, xyz * w[..., None]),
                          weight=film.weight.index_add(0, idx, w))
+
+
+def merge(films: list) -> Film:
+    """Sum partial films of one size (the host-side psum analog)."""
+    out = films[0]
+    for f in films[1:]:
+        out = out._replace(xyz=out.xyz + f.xyz, weight=out.weight + f.weight,
+                           splat_xyz=out.splat_xyz + f.splat_xyz)
+    return out
 
 
 def add_splats(film: Film, pixel_idx: torch.Tensor, L, lam, lam_pdf) -> Film:

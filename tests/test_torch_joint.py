@@ -13,8 +13,9 @@ primitives) with weights carried from JAX's init_params.
   |g|, test_torch_learn's rule); the render branch's gradient equal (rtol
   1e-6) to the port's own torch.autograd.grad through trace_wave, which
   tests/test_torch_grad.py holds against jax.grad; the update is plain SGD
-  with those gradients. No JAX joint program is compiled: it takes minutes
-  on the CPU.
+  with those gradients; over a mesh of one rank it is the same step. No
+  JAX joint program is compiled: it takes minutes on the CPU
+  (tests/test_torch_dp.py holds the two-rank step).
 - An image through a plane tree's BVH (greedy planes, and planes predicted
   by the carried weights) within 1e-4 of the SAH BVH's
   (tests/test_learn.py:281-323, tests/test_joint.py:67-82).
@@ -162,8 +163,20 @@ def test_joint_step_updates_both_branches(tiny, joint_setup):
                                (mc - lr * grads[-1]).detach().numpy(), rtol=1e-6)
     assert new.mat_coeffs.requires_grad and new.mat_coeffs.is_leaf
     assert float((new.mat_coeffs - mc).detach().abs().max()) > 0
-    with pytest.raises(NotImplementedError, match="item 7"):
-        joint.make_joint_step(CFG, tiny["cam"], js["scfg"], js["rcfg"], mesh=object())
+    # over a mesh of one rank (dist.sharding) the step is the same step
+    from nn_bvh_tpu_torch.dist import sharding
+
+    model1 = treenet.params_from_jax(jax.tree.map(np.asarray, tiny["jp"]), CFG, device="cpu")
+    mc1 = js["tsc"].mat_coeffs.detach().clone().requires_grad_(True)
+    step1 = joint.make_joint_step(CFG, tiny["cam"], js["scfg"], js["rcfg"], lr=lr,
+                                  mesh=sharding.make_mesh(device="cpu"))
+    new1, m1 = step1(joint.JointState(model1, mc1), js["tsc"], js["dbvh"], js["lst"],
+                     torch.as_tensor(js["clouds"]), js["pix"], 0)
+    assert {k: float(v) for k, v in m1.items()} == m
+    assert all(torch.equal(a, b) for a, b in zip(new1.model.parameters(), new.model.parameters()))
+    assert torch.equal(new1.mat_coeffs, new.mat_coeffs)
+    with pytest.raises(ValueError, match="one axis"):
+        joint.make_joint_step(CFG, tiny["cam"], js["scfg"], js["rcfg"], axis="batch")
 
 
 def render(sc, dbvh, cam, cfg):

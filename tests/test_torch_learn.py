@@ -519,9 +519,20 @@ def test_cli_train_prints_finite_history(capsys):
                              "step"]
 
 
-def test_cli_train_dp_raises():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cli_train.main(["--device", "cpu", "--dp", "--steps", "1"])
+def test_cli_train_dp_raises(capsys, monkeypatch):
+    """--dp at world size 1 trains as without it; a WORLD_SIZE of 2 with no
+    coordinator raises (tests/test_torch_dp.py runs two ranks)."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    argv = ["--device", "cpu", "--steps", "2", "--batch", "2", "--levels", "3",
+            "--capacity", "16", "--pc-size", "64", "--log-every", "1"]
+    cli_train.main(argv)
+    plain = capsys.readouterr().out
+    cli_train.main(argv + ["--dp"])
+    assert capsys.readouterr().out == plain
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
+        cli_train.main(argv + ["--dp"])
 
 
 def test_cli_tree_bench_reads_a_port_checkpoint(tmp_path, capsys):

@@ -8,8 +8,8 @@ packages build the same tables and BVH from the file (the native builder).
 Also: the written EXR, PFM and PNG read back, the port's EXR reader on the
 repository's golden EXRs, every other integrator (randomwalk, ao,
 lightpath, bdpt, mlt) and --pixelstats through the CLI (finite images and
-PNGs that read back; sppm renders as Path), the flags that are not ported
-yet, and the CLI with JAX blocked. One JAX Path wave is compiled (16x16, 2
+PNGs that read back; sppm renders as Path), --sharded without a
+coordinator, and the CLI with JAX blocked. One JAX Path wave is compiled (16x16, 2
 spp, depth 2)."""
 
 import json
@@ -177,9 +177,15 @@ def test_stats_partial_images_and_mse(scene_file, tmp_path, capsys):
     assert err == {"mse": 0.0, "mrse": 0.0}
 
 
-@pytest.mark.parametrize("flags, item", [(["--sharded"], "item 7")])
-def test_unported_flags_raise(scene_file, tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("flags, item", [(["--sharded"], "MASTER_ADDR")])
+def test_unported_flags_raise(scene_file, tmp_path, flags, item, monkeypatch):
+    """Every flag of the JAX CLI is ported. --sharded with a WORLD_SIZE of 2
+    and no coordinator raises (tests/test_torch_dist.py renders on two
+    ranks)."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match=item):
         cli(scene_file, tmp_path / "x.exr", *flags)
 
 
