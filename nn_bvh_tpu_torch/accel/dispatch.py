@@ -56,6 +56,7 @@ from .traverse import Hit, traverse_binary_plain, traverse_bvh4_plain, traverse_
 from ..core.rng import M32
 from ..devices import resolve_device
 from ..geometry.scene import host
+from ..utils import stats
 
 # backend -> (node layout, traversal function)
 _BACKENDS = {
@@ -80,7 +81,8 @@ class Intersectors:
     """Closest-hit and any-hit callables over one scene's device tables
     (`tables`: node table, triangle table; `quads`: (quad_type,
     quad_params) or None). `n_calls` counts the traversal calls made
-    through it."""
+    through it; each is a span, isect.closest or isect.any
+    (utils/stats.py)."""
 
     def __init__(self, backend: str, tables: tuple, device: torch.device,
                  sort_bounds=None, quads=None, quad_base: int = 0):
@@ -117,18 +119,19 @@ class Intersectors:
 
     def _call(self, o, d, t_max, any_hit):
         self.n_calls += 1
-        out = self._traverse(o, d, t_max, any_hit)
-        if self.quads is None:
-            return out
-        qtype, qparams = self.quads
-        if any_hit:
-            return out | quadrics_mod.intersect_any(qtype, qparams, o, d, t_max)
-        eff = torch.where(torch.isfinite(out.t), out.t, t_max)
-        tq, qi, u, v = quadrics_mod.intersect(qtype, qparams, o, d, eff)
-        take = qi >= 0  # tq < eff already
-        return Hit(t=torch.where(take, tq, out.t),
-                   prim=torch.where(take, self.quad_base + qi, out.prim).to(torch.int32),
-                   b1=torch.where(take, u, out.b1), b2=torch.where(take, v, out.b2))
+        with stats.span("isect.any" if any_hit else "isect.closest"):
+            out = self._traverse(o, d, t_max, any_hit)
+            if self.quads is None:
+                return out
+            qtype, qparams = self.quads
+            if any_hit:
+                return out | quadrics_mod.intersect_any(qtype, qparams, o, d, t_max)
+            eff = torch.where(torch.isfinite(out.t), out.t, t_max)
+            tq, qi, u, v = quadrics_mod.intersect(qtype, qparams, o, d, eff)
+            take = qi >= 0  # tq < eff already
+            return Hit(t=torch.where(take, tq, out.t),
+                       prim=torch.where(take, self.quad_base + qi, out.prim).to(torch.int32),
+                       b1=torch.where(take, u, out.b1), b2=torch.where(take, v, out.b2))
 
     def closest(self, o, d, t_max):
         return self._call(o, d, t_max, False)

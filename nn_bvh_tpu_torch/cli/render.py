@@ -16,9 +16,12 @@ with the independent sampler, as their render functions default, and no
 sensor); sppm and function render as Path (their render functions,
 wavefront/sppm.py and lightpath.render_function, are reached through
 their modules); zsobol and paddedsobol as sobol. --device defaults to the
-CUDA card; without one the render raises. --stats prints the timings, the
-per-pixel distributions of one extra 1-spp wave for Path and VolPath
-(path length, shadow rays, surface hits, RR terminations) and one JSON
+CUDA card; without one the render raises. --stats prints the timings, for
+Path and RandomWalk the render's counters (utils/stats.py's report: camera,
+indirect and shadow rays, hits, RR terminations, paths at the maximum
+depth, lanes processed) to stderr, the per-pixel distributions of one
+extra 1-spp wave for Path and VolPath (path length, shadow rays, surface
+hits, RR terminations) and one JSON
 line: parse, texture-atlas packing, scene build and BVH build seconds,
 render seconds, rays/s, atlas MiB, dist_avg_path_length and
 rays_live_per_s (Path and VolPath) and, on the card, peak device memory.
@@ -98,7 +101,7 @@ def _render(args, mesh):
     from .. import accel
     from ..devices import resolve_device
     from ..geometry import pbrt_parser
-    from ..utils import image as image_mod
+    from ..utils import image as image_mod, stats
     from ..wavefront import camera as camera_mod, film as film_mod, integrator
 
     device = mesh.device if mesh is not None else resolve_device(args.device)
@@ -171,9 +174,21 @@ def _render(args, mesh):
         img = lightpath.render_lightpath(sc, dbvh, cam, spp=spp, seed=args.seed, cfg=cfg,
                                          device=device)
     else:
-        img = integrator.render(sc, dbvh, cam, spp=spp, sampler=sampler, seed=args.seed,
-                                cfg=cfg, wave_callback=wave_cb, sensor=res.make_sensor(),
-                                device=device)
+        # --stats counts the Path and RandomWalk waves' rays (utils/stats.py)
+        counting = args.stats and cfg.kind in ("path", "randomwalk")
+        if counting:
+            stats.clear()
+            stats.enable()
+        try:
+            img = integrator.render(sc, dbvh, cam, spp=spp, sampler=sampler, seed=args.seed,
+                                    cfg=cfg, wave_callback=wave_cb, sensor=res.make_sensor(),
+                                    device=device)
+        finally:
+            if counting:
+                stats.disable()
+        if counting:
+            print(stats.render_report(stats.totals(stats.collect())), file=sys.stderr)
+            stats.clear()
     arr = img.cpu().numpy()
     t2 = time.time()
     if tev is not None:

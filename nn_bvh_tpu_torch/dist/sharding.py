@@ -31,6 +31,8 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from ..utils import stats
+
 RAY_AXIS = "rays"   # the JAX package's mesh axis; the port's group has one axis
 
 
@@ -88,10 +90,12 @@ def gather_band(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     host), on x's device."""
     if mesh.world_size == 1:
         return x
-    src = x.cpu().contiguous()
-    parts = [torch.empty_like(src) for _ in range(mesh.world_size)]
-    dist.all_gather(parts, src)
-    return torch.cat(parts).to(x.device)
+    with stats.span("band.to_host", sync=True):
+        src = x.cpu().contiguous()
+    with stats.span("band.all_gather"):
+        parts = [torch.empty_like(src) for _ in range(mesh.world_size)]
+        dist.all_gather(parts, src)
+        return torch.cat(parts).to(x.device)
 
 
 def psum(tensors, mesh: Mesh, mean: bool = False) -> list:
@@ -131,7 +135,11 @@ def render_sharded(scene, dbvh, cam, mesh: Mesh, spp: int = 16, sampler: str = "
     render; `wave_callback(sample index, xyz, weight)` runs after each
     wave with the band's film (multihost.save_render_state takes it).
     `isect` overrides the traversal (default: dispatch's for the device);
-    `cfg` is an integrator.IntegratorConfig (default: its defaults)."""
+    `cfg` is an integrator.IntegratorConfig (default: its defaults).
+    The bands' XYZ and weight travel in one gather. With tracing on
+    (utils/stats.py): image.setup, the waves' spans, band.to_host (the
+    host read of the band) and band.all_gather (gather_band), and
+    image.develop."""
     from ..accel import dispatch
     from ..core import samplers
     from ..geometry import scene as scene_mod
@@ -144,28 +152,38 @@ def render_sharded(scene, dbvh, cam, mesh: Mesh, spp: int = 16, sampler: str = "
     if R % n != 0:
         raise ValueError(f"pixel count {R} must divide over {n} ranks")
     device = mesh.device
-    sampler_cfg = samplers.to_device(samplers.make_sampler(sampler, seed=seed, spp=spp), device)
-    cfg = cfg._replace(filt=filters.to_device(cfg.filt, device))
-    if isect is None:
-        isect = dispatch.make_intersectors(scene, dbvh, device, sort=not cfg.resort)
-    ls_tables = lightsamplers.build(scene, cfg.light_sampler, device)
-    scene_d = scene_mod.to_device(scene, device)
-    pixel_idx = local_rows(torch.arange(R, dtype=torch.int32, device=device), mesh)
-    n_local = pixel_idx.shape[0]
-    band = film_mod.make_film(1, n_local, device)
-    if film_state is not None:
-        xyz, weight = (torch.as_tensor(x, dtype=torch.float32, device=device)
-                       for x in film_state)
-        band = band._replace(xyz=xyz.reshape(n_local, 3).clone(),
-                             weight=weight.reshape(n_local).clone())
+    stats.advance("image")
+    stats.set_unit(rank=mesh.rank)
+    with stats.span("image.setup"):
+        sampler_cfg = samplers.to_device(samplers.make_sampler(sampler, seed=seed, spp=spp),
+                                         device)
+        cfg = cfg._replace(filt=filters.to_device(cfg.filt, device))
+        if isect is None:
+            isect = dispatch.make_intersectors(scene, dbvh, device, sort=not cfg.resort)
+        ls_tables = lightsamplers.build(scene, cfg.light_sampler, device)
+        scene_d = scene_mod.to_device(scene, device)
+        pixel_idx = local_rows(torch.arange(R, dtype=torch.int32, device=device), mesh)
+        n_local = pixel_idx.shape[0]
+        band = film_mod.make_film(1, n_local, device)
+        if film_state is not None:
+            xyz, weight = (torch.as_tensor(x, dtype=torch.float32, device=device)
+                           for x in film_state)
+            band = band._replace(xyz=xyz.reshape(n_local, 3).clone(),
+                                 weight=weight.reshape(n_local).clone())
     for s in range(start_sample, spp):
+        stats.set_unit(wave=s)
         L, lam, lam_pdf, fw = integrator.trace_wave(scene_d, None, cam, sampler_cfg, cfg,
                                                     pixel_idx, s, ls_tables, isect)[:4]
         # the band's film: a plain vector add, no scatter, no collective
-        band = film_mod.add_samples(band, pixel_idx, L, lam, lam_pdf, filter_weight=fw,
-                                    sequential=True)
+        with stats.span("wave.film"):
+            band = film_mod.add_samples(band, pixel_idx, L, lam, lam_pdf, filter_weight=fw,
+                                        sequential=True)
         if wave_callback is not None:
             wave_callback(s, band.xyz, band.weight)
-    film = film_mod.make_film(cam.height, cam.width, device)
-    film = film._replace(xyz=gather_band(band.xyz, mesh), weight=gather_band(band.weight, mesh))
-    return film_mod.develop(film)
+    stats.set_unit(wave=None)
+    # the bands' XYZ and weight in one gather
+    xyzw = gather_band(torch.cat([band.xyz, band.weight[:, None]], 1), mesh)
+    with stats.span("image.develop"):
+        film = film_mod.make_film(cam.height, cam.width, device)
+        film = film._replace(xyz=xyzw[:, :3].contiguous(), weight=xyzw[:, 3].contiguous())
+        return film_mod.develop(film)

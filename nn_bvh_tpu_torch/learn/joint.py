@@ -29,6 +29,7 @@ import torch
 
 from ..dist import sharding
 from ..geometry import scene as scene_mod
+from ..utils import stats
 from ..wavefront import film as film_mod, integrator
 from . import data as nn_data, export as nn_export, treenet
 
@@ -68,18 +69,21 @@ def make_joint_loss(tree_cfg: treenet.TreeNetConfig, cam, sampler_cfg, render_cf
     def loss_fn(state: JointState, scene, dbvh, ls_tables, clouds, pixel_idx, sample_idx,
                 isect=None):
         # --- render branch: image loss w.r.t. material coeffs -------------
-        scn = scene.replace(mat_coeffs=state.mat_coeffs)
-        L, lam, lam_pdf, fw = integrator.trace_wave(scn, dbvh, cam, sampler_cfg, render_cfg,
-                                                    pixel_idx, sample_idx, ls_tables, isect)
-        f = film_mod.make_film(cam.height, cam.width, pixel_idx.device)
-        f = film_mod.add_samples(f, pixel_idx, L, lam, lam_pdf, filter_weight=fw)
-        if target is None:
-            image_loss = f.xyz.sum() / (cam.height * cam.width)
-        else:
-            image_loss = ((f.xyz - target) ** 2).mean()
+        with stats.span("joint.render"):
+            scn = scene.replace(mat_coeffs=state.mat_coeffs)
+            L, lam, lam_pdf, fw = integrator.trace_wave(scn, dbvh, cam, sampler_cfg,
+                                                        render_cfg, pixel_idx, sample_idx,
+                                                        ls_tables, isect)
+            f = film_mod.make_film(cam.height, cam.width, pixel_idx.device)
+            f = film_mod.add_samples(f, pixel_idx, L, lam, lam_pdf, filter_weight=fw)
+            if target is None:
+                image_loss = f.xyz.sum() / (cam.height * cam.width)
+            else:
+                image_loss = ((f.xyz - target) ** 2).mean()
 
         # --- treeNet branch: differentiable SAH/EPO tree cost -------------
-        tree_loss, _ = treenet.loss_fn(state.model, tree_cfg, clouds)
+        with stats.span("joint.tree"):
+            tree_loss, _ = treenet.loss_fn(state.model, tree_cfg, clouds)
         loss = image_loss + tree_weight * tree_loss
         return loss, {"image_loss": image_loss, "tree_loss": tree_loss}
 
@@ -94,35 +98,43 @@ def make_joint_step(tree_cfg, cam, sampler_cfg, render_cfg, mesh: sharding.Mesh 
     in place (as torch.optim does), mat_coeffs becomes a new leaf. With a
     mesh, `clouds` and `pixel_idx` are the whole batch and the step takes
     this rank's share of each; `axis` is the JAX package's mesh axis name,
-    and the port's group has the one, sharding.RAY_AXIS."""
+    and the port's group has the one, sharding.RAY_AXIS. With tracing on
+    (utils/stats.py) each step is a unit with the spans step.forward
+    (holding the loss's joint.render, the wave's spans within it, and
+    joint.tree), step.backward and step.update."""
     if axis != sharding.RAY_AXIS:
         raise ValueError(f"the mesh's one axis is {sharding.RAY_AXIS!r}, not {axis!r}")
     loss_fn = make_joint_loss(tree_cfg, cam, sampler_cfg, render_cfg, tree_weight, target)
 
     def step(state: JointState, scene, dbvh, ls_tables, clouds, pixel_idx, sample_idx,
              isect=None):
-        if mesh is not None:
-            clouds = sharding.local_rows(clouds, mesh)
-            pixel_idx = sharding.local_rows(pixel_idx, mesh)
-        params = list(state.model.parameters())
-        loss, aux = loss_fn(state, scene, dbvh, ls_tables, clouds, pixel_idx, sample_idx, isect)
-        grads = torch.autograd.grad(loss, params + [state.mat_coeffs], allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params + [state.mat_coeffs], grads)]
-        if mesh is not None:
-            loss, image_loss, tree_loss = sharding.pmean(
-                [loss, aux["image_loss"], aux["tree_loss"]], mesh)
-            aux = {"image_loss": image_loss, "tree_loss": tree_loss}
-            grads = sharding.psum(grads, mesh)
-        g_tree, g_mat = grads[:-1], grads[-1]
-        with torch.no_grad():
-            for p, g in zip(params, g_tree):
-                p.sub_(lr * g)
-            new_mc = (state.mat_coeffs - lr * g_mat).requires_grad_(True)
-            gnorm_tree = torch.sqrt(sum((g * g).sum() for g in g_tree))
-            gnorm_mat = torch.sqrt((g_mat ** 2).sum())
-        metrics = {k: v.detach() for k, v in aux.items()}
-        metrics.update(loss=loss.detach(), gnorm_tree=gnorm_tree, gnorm_mat=gnorm_mat)
+        stats.advance("step")
+        with stats.span("step.forward"):
+            if mesh is not None:
+                clouds = sharding.local_rows(clouds, mesh)
+                pixel_idx = sharding.local_rows(pixel_idx, mesh)
+            params = list(state.model.parameters())
+            loss, aux = loss_fn(state, scene, dbvh, ls_tables, clouds, pixel_idx, sample_idx,
+                                isect)
+        with stats.span("step.backward"):
+            grads = torch.autograd.grad(loss, params + [state.mat_coeffs], allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params + [state.mat_coeffs], grads)]
+        with stats.span("step.update"):
+            if mesh is not None:
+                loss, image_loss, tree_loss = sharding.pmean(
+                    [loss, aux["image_loss"], aux["tree_loss"]], mesh)
+                aux = {"image_loss": image_loss, "tree_loss": tree_loss}
+                grads = sharding.psum(grads, mesh)
+            g_tree, g_mat = grads[:-1], grads[-1]
+            with torch.no_grad():
+                for p, g in zip(params, g_tree):
+                    p.sub_(lr * g)
+                new_mc = (state.mat_coeffs - lr * g_mat).requires_grad_(True)
+                gnorm_tree = torch.sqrt(sum((g * g).sum() for g in g_tree))
+                gnorm_mat = torch.sqrt((g_mat ** 2).sum())
+            metrics = {k: v.detach() for k, v in aux.items()}
+            metrics.update(loss=loss.detach(), gnorm_tree=gnorm_tree, gnorm_mat=gnorm_mat)
         return JointState(state.model, new_mc), metrics
 
     return step

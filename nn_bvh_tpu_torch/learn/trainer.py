@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ..dist import sharding
+from ..utils import stats
 from . import treenet
 from .treenet import TreeNetConfig
 
@@ -58,22 +59,28 @@ def make_train_step(cfg: TreeNetConfig, mesh: sharding.Mesh | None = None):
     the model in place, the state's step advanced. With a mesh, `clouds`
     is the whole batch: this rank trains on its share; the gradients (left
     in each parameter's .grad) are their sums over the ranks, the loss and
-    the metrics their means."""
+    the metrics their means. With tracing on (utils/stats.py) each step
+    is a unit with the spans step.forward, step.backward and step.update
+    (Adam and, with a mesh, the gradients' sum)."""
 
     def train_step(state: TrainState, clouds: torch.Tensor):
-        if mesh is not None:
-            clouds = sharding.local_rows(clouds, mesh)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = treenet.loss_fn(state.model, cfg, clouds)
-        loss.backward()
-        metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
-        if mesh is not None:
-            params = [p for p in state.model.parameters() if p.grad is not None]
-            for p, g in zip(params, sharding.psum([p.grad for p in params], mesh)):
-                p.grad.copy_(g)
-            names = sorted(metrics)
-            metrics = dict(zip(names, sharding.pmean([metrics[k] for k in names], mesh)))
-        state.optimizer.step()
+        stats.advance("step")
+        with stats.span("step.forward"):
+            if mesh is not None:
+                clouds = sharding.local_rows(clouds, mesh)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, metrics = treenet.loss_fn(state.model, cfg, clouds)
+        with stats.span("step.backward"):
+            loss.backward()
+        with stats.span("step.update"):
+            metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
+            if mesh is not None:
+                params = [p for p in state.model.parameters() if p.grad is not None]
+                for p, g in zip(params, sharding.psum([p.grad for p in params], mesh)):
+                    p.grad.copy_(g)
+                names = sorted(metrics)
+                metrics = dict(zip(names, sharding.pmean([metrics[k] for k in names], mesh)))
+            state.optimizer.step()
         return state._replace(step=state.step + 1), metrics
 
     return train_step

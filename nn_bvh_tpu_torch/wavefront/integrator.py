@@ -42,6 +42,17 @@ set_triangles`).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (`devices.resolve_device`). Traversal runs under no_grad: gradients reach shading only.
+
+With tracing on (utils/stats.py) the Path and RandomWalk wave records its
+stages as spans: wave.tables (with the host reads sync.material_kinds and
+sync.light_types), wave.camera, per bounce (attribute depth)
+bounce.resort, bounce.emission, bounce.material, bounce.light and
+bounce.bsdf, the host reads sync.alive before each bounce and sync.tail,
+then wave.tail; make_wave_fn's wave adds wave.film and render
+image.setup and image.develop. Its counters: rays/camera rays, rays/
+indirect rays (lanes alive entering bounces 1 and later), rays/shadow
+rays, intersections/hits, paths/terminated by RR, paths/reached max depth
+and lanes/processed (the wave's lanes per bounce run).
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ from ..scatter import bxdf, lights, lightsamplers
 from ..accel import dispatch
 from ..accel.traverse import Hit
 from ..devices import resolve_device
+from ..utils import stats
 from . import camera as camera_mod, film as film_mod, filters
 
 # sampler dimension layout per pixel sample (the JAX package's schedule)
@@ -231,41 +243,12 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
     if isect is None:
         isect = dispatch.make_intersectors(scene, dbvh, device)
     do_resort = isect.backend in dispatch.CUDA_BACKENDS
-    sort_blo = scene.bounds[0]
-    sort_bext = torch.clamp(scene.bounds[1] - sort_blo, min=1e-9)
 
     ng = NoGradIntersectors(isect)
     isect_closest, isect_any = ng.closest, ng.any_hit
 
     R = pixel_idx.shape[0]
-    sidx0 = torch.as_tensor(sample_idx, dtype=torch.int32, device=device).expand(R)
     f32 = dict(dtype=torch.float32, device=device)
-
-    # camera rays and wavelengths; a moving camera draws a shutter time
-    # (a dimension consumed only then, so static scenes keep their streams)
-    upx, upy = samplers.get_2d(sampler_cfg, pixel_idx, sidx0, DIM_PIXEL)
-    u_pix, film_w = filter_jitter(cfg, torch.stack([upx, upy], -1))
-    ulx, uly = samplers.get_2d(sampler_cfg, pixel_idx, sidx0, DIM_LENS)
-    animated_cam = cam.motion_keys is not None
-    u_time = (samplers.get_1d(sampler_cfg, pixel_idx, sidx0, DIM_PATH_BASE)
-              if animated_cam else None)
-    o, d = camera_mod.generate_rays(cam, pixel_idx, u_pix, torch.stack([ulx, uly], -1),
-                                    u_time=u_time)
-    ul = samplers.get_1d(sampler_cfg, pixel_idx, sidx0, DIM_WAVELENGTH)
-    lam, lam_pdf = spectrum.sample_wavelengths_visible(ul)
-
-    S = spectrum.N_SPECTRUM_SAMPLES
-    L = torch.zeros(R, S, **f32)
-    beta = torch.ones(R, S, **f32)
-    active = torch.ones(R, dtype=torch.bool, device=device)
-    specular_prev = torch.ones(R, dtype=torch.bool, device=device)
-    prev_pdf = torch.ones(R, **f32)
-    eta_scale = torch.ones(R, **f32)
-    # ray-cone state (the texture LOD of gather_material)
-    cone_w = torch.zeros(R, **f32)
-    cone_s = torch.full((R,), camera_spread(cam), **f32)
-    # per-lane stats counters [bounces, shadow rays, hits, RR terminations]
-    st = torch.zeros(R, 4, **f32) if cfg.collect_stats else None
     nee = cfg.sample_lights
     # MIS weights of hit emitters: the power heuristic against light
     # sampling, 1 after a specular bounce; without MIS 0 there, and 1
@@ -273,19 +256,56 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
     mis_on = cfg.mis and nee
 
     n_lights = scene.n_lights
-    mat_all = bxdf.material_records(scene)
-    kinds = bxdf.scene_kinds(scene)
-    if n_lights > 0:
-        light_all = lights.light_records(scene)
-        types = lights.light_types(scene)
-        tags = frozenset(types)
-        has_env = lights.has_env_map(scene)
-        has_escape = scene_mod.LIGHT_UNIFORM_INFINITE in tags or has_env
-        sel_pmf_of = lambda tag: torch.where(scene.light_type == tag, ls_tables.pmf, 0.0).sum()
-        inf_sel_pmf = sel_pmf_of(scene_mod.LIGHT_UNIFORM_INFINITE)
-        env_sel_pmf = sel_pmf_of(scene_mod.LIGHT_IMAGE_INFINITE)
-        portal_sel_pmf = sel_pmf_of(scene_mod.LIGHT_PORTAL_ENV)
-        portal_ids = lights.portal_ids(types)
+
+    # the wave's tables, and the host reads of the tags they hold
+    with stats.span("wave.tables"):
+        sort_blo = scene.bounds[0]
+        sort_bext = torch.clamp(scene.bounds[1] - sort_blo, min=1e-9)
+        mat_all = bxdf.material_records(scene)
+        with stats.span("sync.material_kinds", sync=True):
+            kinds = bxdf.scene_kinds(scene)
+        if n_lights > 0:
+            light_all = lights.light_records(scene)
+            with stats.span("sync.light_types", sync=True):
+                types = lights.light_types(scene)
+            tags = frozenset(types)
+            has_env = lights.has_env_map(scene)
+            has_escape = scene_mod.LIGHT_UNIFORM_INFINITE in tags or has_env
+            sel_pmf_of = lambda tag: torch.where(scene.light_type == tag, ls_tables.pmf, 0.0).sum()
+            inf_sel_pmf = sel_pmf_of(scene_mod.LIGHT_UNIFORM_INFINITE)
+            env_sel_pmf = sel_pmf_of(scene_mod.LIGHT_IMAGE_INFINITE)
+            portal_sel_pmf = sel_pmf_of(scene_mod.LIGHT_PORTAL_ENV)
+            portal_ids = lights.portal_ids(types)
+
+    # camera rays and wavelengths; a moving camera draws a shutter time
+    # (a dimension consumed only then, so static scenes keep their streams)
+    with stats.span("wave.camera"):
+        sidx0 = torch.as_tensor(sample_idx, dtype=torch.int32, device=device).expand(R)
+        upx, upy = samplers.get_2d(sampler_cfg, pixel_idx, sidx0, DIM_PIXEL)
+        u_pix, film_w = filter_jitter(cfg, torch.stack([upx, upy], -1))
+        ulx, uly = samplers.get_2d(sampler_cfg, pixel_idx, sidx0, DIM_LENS)
+        animated_cam = cam.motion_keys is not None
+        u_time = (samplers.get_1d(sampler_cfg, pixel_idx, sidx0, DIM_PATH_BASE)
+                  if animated_cam else None)
+        o, d = camera_mod.generate_rays(cam, pixel_idx, u_pix, torch.stack([ulx, uly], -1),
+                                        u_time=u_time)
+        ul = samplers.get_1d(sampler_cfg, pixel_idx, sidx0, DIM_WAVELENGTH)
+        lam, lam_pdf = spectrum.sample_wavelengths_visible(ul)
+
+        S = spectrum.N_SPECTRUM_SAMPLES
+        L = torch.zeros(R, S, **f32)
+        beta = torch.ones(R, S, **f32)
+        active = torch.ones(R, dtype=torch.bool, device=device)
+        specular_prev = torch.ones(R, dtype=torch.bool, device=device)
+        prev_pdf = torch.ones(R, **f32)
+        eta_scale = torch.ones(R, **f32)
+        # ray-cone state (the texture LOD of gather_material)
+        cone_w = torch.zeros(R, **f32)
+        cone_s = torch.full((R,), camera_spread(cam), **f32)
+        # per-lane stats counters [bounces, shadow rays, hits, RR terminations]
+        st = torch.zeros(R, 4, **f32) if cfg.collect_stats else None
+        perm0 = torch.arange(R, dtype=torch.int64, device=device)
+    stats.count("rays/camera rays", R)
 
     def escape_pdf(prev_p, d):
         """The light-sampling pdf of an escaped ray's direction: uniform
@@ -338,132 +358,148 @@ def trace_wave(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig, pixel_idx,
 
     def bounce(depth: int, state):
         if do_resort:
-            key = dispatch.ray_sort_key(state[0], state[1], sort_blo, sort_bext,
-                                        torch.where(state[4], 1.0, -1.0))
-            order = torch.argsort(key, stable=True)
-            state = tuple(None if a is None else a[order] for a in state)
+            with stats.span("bounce.resort", depth=depth):
+                key = dispatch.ray_sort_key(state[0], state[1], sort_blo, sort_bext,
+                                            torch.where(state[4], 1.0, -1.0))
+                order = torch.argsort(key, stable=True)
+                state = tuple(None if a is None else a[order] for a in state)
         (o, d, L, beta, active, specular_prev, prev_pdf, prev_p, eta_scale,
          cone_w, cone_s, pix, sidx, lam, perm, st) = state
         base = DIM_PATH_BASE + (1 if animated_cam else 0) + depth * DIMS_PER_DEPTH
 
-        L, found, sp, wo = add_emission(o, d, L, beta, active, specular_prev,
-                                        prev_pdf, prev_p, lam)
-        if st is not None:
-            st = count(count(st, 0, active), 2, found)
+        with stats.span("bounce.emission", depth=depth):
+            stats.count("lanes/processed", R)
+            if depth > 0:
+                stats.count("rays/indirect rays", active)
+            L, found, sp, wo = add_emission(o, d, L, beta, active, specular_prev,
+                                            prev_pdf, prev_p, lam)
+            if st is not None:
+                st = count(count(st, 0, active), 2, found)
+            stats.count("intersections/hits", found)
         active = found
-        cone_at_hit = cone_w + sp.t * cone_s
-        foot = texture.cone_foot_log2(cone_at_hit, vm.absdot(d, sp.ns), sp.uv_scale)
-        u_mix = (rng.hash_float(pix, sidx, depth, 0x77) if bxdf.has_mix(scene) else None)
-        ctx = bxdf.gather_material(scene, sp.mat, lam, mat_all, sp.uv, u_mix,
-                                   foot_log2=foot, kinds=kinds)
-        active = active & (sp.mat >= 0)
-        wo_local = vm.to_local(sp.ns, wo)
-        if scene.feat_subsurface:
-            # a subsurface lane mirrors at its interface or moves to a
-            # sampled exit point (wavefront/subsurface.py)
-            from . import subsurface
+        with stats.span("bounce.material", depth=depth):
+            cone_at_hit = cone_w + sp.t * cone_s
+            foot = texture.cone_foot_log2(cone_at_hit, vm.absdot(d, sp.ns), sp.uv_scale)
+            u_mix = (rng.hash_float(pix, sidx, depth, 0x77) if bxdf.has_mix(scene) else None)
+            ctx = bxdf.gather_material(scene, sp.mat, lam, mat_all, sp.uv, u_mix,
+                                       foot_log2=foot, kinds=kinds)
+            active = active & (sp.mat >= 0)
+            wo_local = vm.to_local(sp.ns, wo)
+            if scene.feat_subsurface:
+                # a subsurface lane mirrors at its interface or moves to a
+                # sampled exit point (wavefront/subsurface.py)
+                from . import subsurface
 
-            sp, ctx, wo_local, beta, active = subsurface.transition(
-                scene, isect_closest, _shading_point, sp, wo, wo_local, ctx, lam, beta,
-                active, pix, sidx, depth)
+                sp, ctx, wo_local, beta, active = subsurface.transition(
+                    scene, isect_closest, _shading_point, sp, wo, wo_local, ctx, lam, beta,
+                    active, pix, sidx, depth)
 
         # direct lighting
         if nee and n_lights > 0:
-            u_sel = samplers.get_1d(sampler_cfg, pix, sidx, base + 3)
-            ulu, ulv = samplers.get_2d(sampler_cfg, pix, sidx, base + 4)
-            light_id, sel_pmf, _ = lightsamplers.sample_ctx(ls_tables, sp.p, u_sel)
-            ls = lights.sample_li(scene, light_all, light_id, sp.p, lam,
-                                  torch.stack([ulu, ulv], -1), tags)
-            f_l, pdf_b = bxdf.evaluate(ctx, wo_local, vm.to_local(sp.ns, ls.wi))
-            cos_l = vm.absdot(ls.wi, sp.ns)
-            want = active & ls.valid & (cos_l > 0) & (f_l > 0).any(-1)
-            so = vm.offset_ray_origin(sp.p, vm.face_forward(sp.ng, ls.wi), ls.wi)
-            s_tmax = torch.where(want, torch.clamp(ls.dist * 0.999, max=1e30), -1.0)
-            occluded = isect_any(so, ls.wi, s_tmax)
-            if st is not None:
-                st = count(st, 1, want)
-            pdf_light = ls.pdf * sel_pmf
-            if cfg.mis:
-                w_l = torch.where(ls.is_delta, 1.0,
-                                  sampling.power_heuristic(1.0, pdf_light, 1.0, pdf_b))
+            with stats.span("bounce.light", depth=depth):
+                u_sel = samplers.get_1d(sampler_cfg, pix, sidx, base + 3)
+                ulu, ulv = samplers.get_2d(sampler_cfg, pix, sidx, base + 4)
+                light_id, sel_pmf, _ = lightsamplers.sample_ctx(ls_tables, sp.p, u_sel)
+                ls = lights.sample_li(scene, light_all, light_id, sp.p, lam,
+                                      torch.stack([ulu, ulv], -1), tags)
+                f_l, pdf_b = bxdf.evaluate(ctx, wo_local, vm.to_local(sp.ns, ls.wi))
+                cos_l = vm.absdot(ls.wi, sp.ns)
+                want = active & ls.valid & (cos_l > 0) & (f_l > 0).any(-1)
+                so = vm.offset_ray_origin(sp.p, vm.face_forward(sp.ng, ls.wi), ls.wi)
+                s_tmax = torch.where(want, torch.clamp(ls.dist * 0.999, max=1e30), -1.0)
+                occluded = isect_any(so, ls.wi, s_tmax)
+                if st is not None:
+                    st = count(st, 1, want)
+                stats.count("rays/shadow rays", want)
+                pdf_light = ls.pdf * sel_pmf
+                if cfg.mis:
+                    w_l = torch.where(ls.is_delta, 1.0,
+                                      sampling.power_heuristic(1.0, pdf_light, 1.0, pdf_b))
+                else:
+                    w_l = torch.ones(R, **f32)
+                # every factor is masked before the product (masked lanes must
+                # not form a possibly-inf product; same as the JAX package)
+                take = want & ~occluded
+                w_over = torch.where(take, cos_l * w_l / torch.clamp(pdf_light, min=1e-20), 0.0)
+                f_l_m = torch.where(take[..., None], f_l, 0.0)
+                li_m = torch.where(take[..., None], ls.li, 0.0)
+                L = L + beta * f_l_m * w_over[..., None] * li_m
+
+        # BSDF sampling -> next segment, then Russian roulette
+        with stats.span("bounce.bsdf", depth=depth):
+            ubu, ubv = samplers.get_2d(sampler_cfg, pix, sidx, base + 1)
+            if cfg.kind == "randomwalk":
+                # RandomWalk: a uniform-sphere direction, f evaluated, pdf 1/4pi
+                wi_rw = sampling.sample_uniform_sphere(torch.stack([ubu, ubv], -1))
+                f_rw, _ = bxdf.evaluate(ctx, wo_local, wi_rw)
+                false = torch.zeros(R, dtype=torch.bool, device=device)
+                bs = bxdf.BSDFSample(wi=wi_rw, f=f_rw,
+                                     pdf=torch.full((R,), sampling.UNIFORM_SPHERE_PDF, **f32),
+                                     specular=false, transmission=false,
+                                     eta=torch.ones(R, **f32), valid=(f_rw > 0).any(-1))
             else:
-                w_l = torch.ones(R, **f32)
-            # every factor is masked before the product (masked lanes must
-            # not form a possibly-inf product; same as the JAX package)
-            take = want & ~occluded
-            w_over = torch.where(take, cos_l * w_l / torch.clamp(pdf_light, min=1e-20), 0.0)
-            f_l_m = torch.where(take[..., None], f_l, 0.0)
-            li_m = torch.where(take[..., None], ls.li, 0.0)
-            L = L + beta * f_l_m * w_over[..., None] * li_m
+                uc = samplers.get_1d(sampler_cfg, pix, sidx, base + 0)
+                bs = bxdf.sample(ctx, wo_local, uc, torch.stack([ubu, ubv], -1))
+            wi_world = vm.from_local(sp.ns, bs.wi)
+            cos_b = vm.absdot(wi_world, sp.ns)
+            # double-where: an invalid lane's pdf (0, clamped) must not reach the
+            # reciprocal, whose gradient there is 0 * inf = NaN once the pdf
+            # depends on a material coefficient (hair's does)
+            inv_pdf_b = torch.where(bs.valid,
+                                    1.0 / torch.clamp(torch.where(bs.valid, bs.pdf, 1.0),
+                                                      min=1e-20), 0.0)
+            beta_new = beta * bs.f * (cos_b * inv_pdf_b)[..., None]
+            active = active & bs.valid & (beta_new > 0).any(-1)
+            beta = torch.where(active[..., None], beta_new, beta)
+            specular_prev = torch.where(active, bs.specular, specular_prev)
+            prev_pdf = torch.where(active, bs.pdf, prev_pdf)
+            prev_p = torch.where(active[..., None], sp.p, prev_p)
+            eta_scale = torch.where(active, eta_scale * bs.eta * bs.eta, eta_scale)
+            ng_o = vm.face_forward(sp.ng, wi_world)
+            o = torch.where(active[..., None], vm.offset_ray_origin(sp.p, ng_o, wi_world), o)
+            d = torch.where(active[..., None], wi_world, d)
+            cone_w = torch.where(active, cone_at_hit, cone_w)
+            cone_s = torch.where(active & ~bs.specular, torch.clamp(cone_s, min=0.25), cone_s)
 
-        # BSDF sampling -> next segment
-        ubu, ubv = samplers.get_2d(sampler_cfg, pix, sidx, base + 1)
-        if cfg.kind == "randomwalk":
-            # RandomWalk: a uniform-sphere direction, f evaluated, pdf 1/4pi
-            wi_rw = sampling.sample_uniform_sphere(torch.stack([ubu, ubv], -1))
-            f_rw, _ = bxdf.evaluate(ctx, wo_local, wi_rw)
-            false = torch.zeros(R, dtype=torch.bool, device=device)
-            bs = bxdf.BSDFSample(wi=wi_rw, f=f_rw,
-                                 pdf=torch.full((R,), sampling.UNIFORM_SPHERE_PDF, **f32),
-                                 specular=false, transmission=false, eta=torch.ones(R, **f32),
-                                 valid=(f_rw > 0).any(-1))
-        else:
-            uc = samplers.get_1d(sampler_cfg, pix, sidx, base + 0)
-            bs = bxdf.sample(ctx, wo_local, uc, torch.stack([ubu, ubv], -1))
-        wi_world = vm.from_local(sp.ns, bs.wi)
-        cos_b = vm.absdot(wi_world, sp.ns)
-        # double-where: an invalid lane's pdf (0, clamped) must not reach the
-        # reciprocal, whose gradient there is 0 * inf = NaN once the pdf
-        # depends on a material coefficient (hair's does)
-        inv_pdf_b = torch.where(bs.valid,
-                                1.0 / torch.clamp(torch.where(bs.valid, bs.pdf, 1.0), min=1e-20),
-                                0.0)
-        beta_new = beta * bs.f * (cos_b * inv_pdf_b)[..., None]
-        active = active & bs.valid & (beta_new > 0).any(-1)
-        beta = torch.where(active[..., None], beta_new, beta)
-        specular_prev = torch.where(active, bs.specular, specular_prev)
-        prev_pdf = torch.where(active, bs.pdf, prev_pdf)
-        prev_p = torch.where(active[..., None], sp.p, prev_p)
-        eta_scale = torch.where(active, eta_scale * bs.eta * bs.eta, eta_scale)
-        ng_o = vm.face_forward(sp.ng, wi_world)
-        o = torch.where(active[..., None], vm.offset_ray_origin(sp.p, ng_o, wi_world), o)
-        d = torch.where(active[..., None], wi_world, d)
-        cone_w = torch.where(active, cone_at_hit, cone_w)
-        cone_s = torch.where(active & ~bs.specular, torch.clamp(cone_s, min=0.25), cone_s)
-
-        # Russian roulette on beta * eta_scale (Path only)
-        if cfg.mis and depth >= cfg.rr_depth:
-            u_rr = samplers.get_1d(sampler_cfg, pix, sidx, base + 6)
-            q = torch.clamp(1.0 - beta.amax(-1) * eta_scale, min=0.0)
-            die = active & (u_rr < q)
-            if st is not None:
-                st = count(st, 3, die)
-            active = active & ~die
-            beta = torch.where(active[..., None],
-                               beta / torch.clamp(1.0 - q, min=1e-6)[..., None], beta)
+            # Russian roulette on beta * eta_scale (Path only)
+            if cfg.mis and depth >= cfg.rr_depth:
+                u_rr = samplers.get_1d(sampler_cfg, pix, sidx, base + 6)
+                q = torch.clamp(1.0 - beta.amax(-1) * eta_scale, min=0.0)
+                die = active & (u_rr < q)
+                if st is not None:
+                    st = count(st, 3, die)
+                stats.count("paths/terminated by RR", die)
+                active = active & ~die
+                beta = torch.where(active[..., None],
+                                   beta / torch.clamp(1.0 - q, min=1e-6)[..., None], beta)
 
         return (o, d, L, beta, active, specular_prev, prev_pdf, prev_p, eta_scale,
                 cone_w, cone_s, pix, sidx, lam, perm, st)
 
-    perm0 = torch.arange(R, dtype=torch.int64, device=device)
     state = (o, d, L, beta, active, specular_prev, prev_pdf, o, eta_scale,
              cone_w, cone_s, pixel_idx, sidx0, lam, perm0, st)
     for depth in range(cfg.max_depth):
-        if not bool(state[4].any()):
+        with stats.span("sync.alive", sync=True):
+            alive = bool(state[4].any())
+        if not alive:
             break
         state = bounce(depth, state)
     (o, d, L, beta, active, specular_prev, prev_pdf, prev_p, _, _, _, _, _,
      lam_f, perm, st) = state
     # trailing emission-only segment (the depth == max_depth break)
-    if bool(active.any()):
-        L, _, _, _ = add_emission(o, d, L, beta, active, specular_prev, prev_pdf,
-                                  prev_p, lam_f)
-    L_out = torch.zeros_like(L)
-    L_out[perm] = L  # back to the caller's lane order
-    if st is None:
-        return L_out, lam, lam_pdf, film_w
-    st_out = torch.zeros_like(st)
-    st_out[perm] = st
+    with stats.span("sync.tail", sync=True):
+        tail = bool(active.any())
+    with stats.span("wave.tail"):
+        stats.count("paths/reached max depth", active)
+        if tail:
+            L, _, _, _ = add_emission(o, d, L, beta, active, specular_prev, prev_pdf,
+                                      prev_p, lam_f)
+        L_out = torch.zeros_like(L)
+        L_out[perm] = L  # back to the caller's lane order
+        if st is None:
+            return L_out, lam, lam_pdf, film_w
+        st_out = torch.zeros_like(st)
+        st_out[perm] = st
     return L_out, lam, lam_pdf, film_w, st_out
 
 
@@ -612,8 +648,9 @@ def make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg: IntegratorConfig,
             sc = scene_at_shutter(scene_d, sample_idx, sampler_cfg.spp)
             isect.set_triangles(sc.tri_p)
         L, lam, lam_pdf, fw = trace(sc, sample_idx)
-        return film_mod.add_samples(film, pixel_idx, L, lam, lam_pdf,
-                                    filter_weight=fw, sequential=True, sensor_curves=curves)
+        with stats.span("wave.film"):
+            return film_mod.add_samples(film, pixel_idx, L, lam, lam_pdf,
+                                        filter_weight=fw, sequential=True, sensor_curves=curves)
 
     return wave
 
@@ -644,11 +681,16 @@ def render(scene, dbvh, cam, spp: int = 16, sampler: str = "sobol", seed: int = 
     wave_callback(sample index, film) runs after each wave (the display
     stream and partial images of cli.render)."""
     device = resolve_device(device, scene)
-    sampler_cfg = samplers.make_sampler(sampler, seed=seed, spp=spp, width=cam.width)
-    film = film_mod.make_film(cam.height, cam.width, device)
-    wave = make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg, device=device, sensor=sensor)
+    stats.advance("image")
+    with stats.span("image.setup"):
+        sampler_cfg = samplers.make_sampler(sampler, seed=seed, spp=spp, width=cam.width)
+        film = film_mod.make_film(cam.height, cam.width, device)
+        wave = make_wave_fn(scene, dbvh, cam, sampler_cfg, cfg, device=device, sensor=sensor)
     for s in range(spp):
+        stats.set_unit(wave=s)
         film = wave(film, s)
         if wave_callback is not None:
             wave_callback(s, film)
-    return film_mod.develop(film, sensor=sensor)
+    stats.set_unit(wave=None)
+    with stats.span("image.develop"):
+        return film_mod.develop(film, sensor=sensor)

@@ -322,18 +322,27 @@ def test_tev_unreachable_is_a_warning(capsys):
 
 
 def test_stats_report_matches_jax():
-    c_t = stats.make_counters(stats.RENDER_COUNTERS)
+    """The counter store's totals (float32 sums, host numbers and device
+    sums alike) print as JAX's bumped and merged counters do."""
     c_j = j_stats.make_counters(j_stats.RENDER_COUNTERS)
     assert stats.RENDER_COUNTERS == j_stats.RENDER_COUNTERS
-    for name, amount in (("rays/camera rays", 100), ("rays/camera rays", 28.0),
-                         ("rays/shadow rays", 16777217), ("intersections/hits", 1234567.5),
-                         ("paths/terminated by RR", 3)):
-        c_t = stats.bump(c_t, name, torch.tensor(amount) if isinstance(amount, float) else amount)
-        c_j = j_stats.bump(c_j, name, amount)
-    c_t = stats.merge(c_t, stats.bump(stats.make_counters(stats.RENDER_COUNTERS),
-                                      "paths/reached max depth", 7))
-    c_j = j_stats.merge(c_j, j_stats.bump(j_stats.make_counters(j_stats.RENDER_COUNTERS),
-                                          "paths/reached max depth", 7))
+    stats.clear()
+    stats.enable(cuda=False)
+    try:
+        for name, amount in (("rays/camera rays", 100), ("rays/camera rays", 28.0),
+                             ("rays/shadow rays", 16777217),
+                             ("intersections/hits", 1234567.5),
+                             ("paths/terminated by RR", 3)):
+            stats.count(name, torch.tensor(amount) if isinstance(amount, float) else amount)
+            c_j = j_stats.bump(c_j, name, amount)
+        stats.count("paths/reached max depth", torch.ones(7, dtype=torch.bool))
+        c_j = j_stats.merge(c_j, j_stats.bump(j_stats.make_counters(j_stats.RENDER_COUNTERS),
+                                              "paths/reached max depth", 7))
+        c_t = stats.totals(stats.collect())
+    finally:
+        stats.disable()
+        stats.clear()
+    c_t.update({k: 0.0 for k in stats.RENDER_COUNTERS if k not in c_t})
     assert stats.render_report(c_t) == j_stats.render_report(c_j)
     assert "camera rays" in stats.render_report(c_t)
     extra = {"misc": torch.tensor(2.0), "a/b": torch.tensor(1.0)}
