@@ -10,10 +10,14 @@ points, once per traversal backend, and checks it:
 
 1. environment: a CUDA card is required; prints nvidia-smi's name and power
    limit;
-2. build: compiles the three traversal sources and the lab's of csrc/ with
-   nvcc, one process each, all at once; prints their ptxas register / spill
-   lines and fails if any kernel spills (the lab's floor and its probe
-   too);
+2. build: compiles the three traversal sources, the lab's and the material
+   gradient's of csrc/ with nvcc, one process each, all at once; prints
+   their ptxas register / spill lines and fails if any kernel spills (the
+   lab's floor and its probe too); then the material gradient
+   (`phase_material_grad`) at the joint_720p shape against the float64
+   segment sum, bit-equal twice and with no atomic instruction, its device
+   ms beside its bound, aten's index_put_ backward and two plain float32
+   forms of the sum;
 3. BVH4 kernel vs plain: closest-hit and any-hit on 160,000 camera rays and
    160,000 incoherent rays (20% dead lanes), through the CUDA kernel and the
    plain torch traversal, under the kernels' contract
@@ -176,10 +180,12 @@ points, once per traversal backend, and checks it:
    wave's batches on both trees, warm and with L2 flushed; 18.4 one joint
    step (`joint.make_joint_step`) on phase 14's configuration (the bench
    wave, RR off) over the predicted BVH with the tree branch at full width:
-   time, peak memory, launches = traversal calls, gnorm_tree and gnorm_mat
-   finite and > 0 (the step updates 18.1's model in place, after 18.3 has
-   read it). Its main path's launches (the wave and the joint step)
-   count in bvh4_traverse's.
+   time, peak memory, launches = traversal calls, material_grad's two
+   launches a bounce and no other kernel, gnorm_tree and gnorm_mat finite
+   and > 0 (the step updates 18.1's model in place, after 18.3 has read
+   it). Its main path's launches (the wave and the joint step) count in
+   bvh4_traverse's; the joint step's material_grad launches are that
+   kernel's row.
 19. scene input: `bench_scene.write_pbrt_bench` writes the bench
    configuration as a .pbrt file into a temporary directory (the 24
    spheres as three binary plymesh files under a checkerboard, a scaled
@@ -350,6 +356,81 @@ def compare(torch, label, kernel, plain, o, d, t_max):
                   f"{label} any-hit")
     rate = float(((hk.prim >= 0) & live).sum()) / float(live.sum())
     return ties, err, rate
+
+
+def sass_atomics(torch, name: str) -> list:
+    """The atomic and reduction instructions (ATOM, ATOMS, ATOMG, RED) in
+    the SASS of the library of csrc/<name>.cu (cuobjdump, beside nvcc)."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from nn_bvh_tpu_torch import kernels
+
+    sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+                           kernels.load(name)._name], capture_output=True, text=True,
+                          check=True).stdout
+    check("partial_sums" in sass, f"{name}: no partial_sums entry in its SASS")
+    return re.findall(r"\b(?:ATOM|ATOMS|ATOMG|RED)\.[A-Z0-9_.]+", sass)
+
+
+def phase_material_grad(torch, dev) -> dict:
+    """Phase 2: the material gather's gradient (csrc/material_grad.cu) at the
+    joint_720p shape (921,600 lanes x 17 columns onto 3 rows, 10% missed
+    lanes) against the float64 plain segment sum, twice bit-equal, no atomic
+    instruction in its SASS; its device time beside its bound (the bytes of
+    grad and ids at 3.35 TB/s), beside aten's index_put_ backward of the same
+    gather and beside two plain float32 forms of the same sum that are
+    deterministic (a one-hot product, one masked sum a row) -> the kernels
+    line's row, whose launches phase 18.4 fills in."""
+    from nn_bvh_tpu_torch.scatter import material_grad as mg
+    from nn_bvh_tpu_torch.tools import bench_scene as bs
+
+    R, C, M = 1280 * 720, 17, 3
+    gen = torch.Generator(device=dev).manual_seed(21)
+    grad = torch.randn(R, C, generator=gen, device=dev)
+    ids = (torch.bucketize(torch.rand(R, generator=gen, device=dev),
+                           torch.tensor([0.1, 0.6, 0.9], device=dev)) - 1).to(torch.int32)
+    got, again = mg.segment_sum(grad, ids, M), mg.segment_sum(grad, ids, M)
+    diff = (got.double() - mg.segment_sum_plain(grad, ids, M)).abs()
+    # float32 partial sums against float64: relative to each entry's absolute sum
+    abs_sum = mg.segment_sum_plain(grad.abs(), ids, M)
+    err = float((diff / abs_sum).max())
+    check(torch.equal(got, again), "material_grad: two calls differ")
+    check(err < 1e-5, f"material_grad: {err:.3g} of the absolute sum from float64")
+    atomics = sass_atomics(torch, mg.NAME)
+    check(not atomics, f"material_grad: atomic instructions {atomics}")
+    ms = bs.device_ms(lambda: mg.segment_sum(grad, ids, M))
+    plain_ms = event_ms(torch, lambda: mg.segment_sum_plain(grad, ids, M))[0]
+    idx = torch.clamp(ids, min=0).long()
+    aten = lambda: torch.zeros(M, C, device=dev).index_put_((idx,), grad, accumulate=True)
+    aten()
+    aten_ms = event_ms(torch, lambda: [aten() for _ in range(3)])[0] / 3
+    rows = torch.arange(M, device=dev)
+    forms = {  # plain float32, no atomics: cuBLAS's product and aten's reductions
+        "one-hot product": lambda: (idx[None, :] == rows[:, None]).to(torch.float32) @ grad,
+        "masked sums": lambda: torch.stack([torch.where((idx == m)[:, None], grad, 0.0).sum(0)
+                                            for m in range(M)])}
+    form_ms = {}
+    for label, fn in forms.items():
+        a, b = fn(), fn()
+        f_err = float(((a.double() - mg.segment_sum_plain(grad, ids, M)).abs() / abs_sum).max())
+        form_ms[label] = bs.device_ms(fn, n=20)
+        print(f"phase 2: plain float32 {label}: {form_ms[label]:.4f} ms device, "
+              f"{f_err:.3g} of the absolute sum from float64, two calls "
+              f"{'bit-equal' if torch.equal(a, b) else 'differ'} (TF32 "
+              f"{torch.backends.cuda.matmul.allow_tf32})", flush=True)
+    nbytes = (grad.numel() + ids.numel()) * 4
+    bound_ms = nbytes / 3.35e12 * 1e3
+    print(f"phase 2: material_grad at {R} x {C} onto {M} rows: {ms:.4f} ms device "
+          f"(bound {bound_ms:.4f} ms: {nbytes} bytes at 3.35 TB/s; {bound_ms / ms:.1%} of it), "
+          f"aten index_put_ backward {aten_ms:.3f} ms, float64 plain {plain_ms:.3f} ms; "
+          f"{err:.3g} of the absolute sum from float64, two calls bit-equal, no atomics",
+          flush=True)
+    return {"name": mg.NAME, "route": "cuda", "source": "nn_bvh_tpu_torch/csrc/material_grad.cu",
+            "replaces": None, "launches": None, "max_abs_err": float(diff.max()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": aten_ms}
 
 
 def phase_kernel_vs_plain(torch, sc, dbvh, batches, dev, backend, plain, phase):
@@ -788,7 +869,8 @@ def phase_gradients(torch, sc, dbvh, cam, dev):
     ms, (value, g_k) = event_ms(torch, lambda: grads(k_isect))
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() - base_mem
-    check(counts.get("bvh4_traverse", 0) > 0 and set(counts) == {"bvh4_traverse"},
+    check(counts.get("bvh4_traverse", 0) > 0 and counts.get("material_grad", 0) > 0
+          and set(counts) == {"bvh4_traverse", "material_grad"},
           f"gradient wave launches {counts}")
     _, g_p = grads(p_isect)
     rtol, atol = 1e-3, 1e-6
@@ -1069,7 +1151,7 @@ def phase_materials(torch, dev):
     g_ms, (value, gs_k) = event_ms(torch, lambda: grads(isect, chunks))
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() - base_mem
-    check(set(counts) == {"bvh4_traverse"}, f"gradient wave launches {counts}")
+    check(set(counts) == {"bvh4_traverse", "material_grad"}, f"gradient wave launches {counts}")
     g_k = sum(gs_k)
     # the plain traversal on the first chunk (~12 s a chunk), against its gradient
     _, (g_p,) = grads(plain, chunks[:1])
@@ -1327,9 +1409,10 @@ def wave_traversal_ms(torch, sc, dbvh, cam, dev):
             len(calls))
 
 
-def phase_learner(torch, sc, dbvh, cam, dev, ref_film) -> int:
-    """Phase 18 (see the module doc) -> bvh4_traverse launches of its main
-    path (the wave on the predicted BVH and the joint step)."""
+def phase_learner(torch, sc, dbvh, cam, dev, ref_film) -> tuple:
+    """Phase 18 (see the module doc) -> (bvh4_traverse launches of its main
+    path (the wave on the predicted BVH and the joint step), material_grad
+    launches of the joint step)."""
     import contextlib
     import io
     import math
@@ -1486,7 +1569,9 @@ def phase_learner(torch, sc, dbvh, cam, dev, ref_film) -> int:
     ms, (jstate, jm) = event_ms(torch, lambda: run(jstate))
     counts = launch_counts()
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-    check(counts.get("bvh4_traverse", 0) == isect.n_calls > 0 and set(counts) == {"bvh4_traverse"},
+    check(counts.get("bvh4_traverse", 0) == isect.n_calls > 0
+          and counts.get("material_grad", 0) == 2 * DEPTH  # two a bounce
+          and set(counts) == {"bvh4_traverse", "material_grad"},
           f"joint step launches {counts}, {isect.n_calls} traversal calls")
     jm = {k: float(v) for k, v in jm.items()}
     for k in ("gnorm_tree", "gnorm_mat"):
@@ -1495,8 +1580,9 @@ def phase_learner(torch, sc, dbvh, cam, dev, ref_film) -> int:
     print(f"phase 18: 18.4 joint step (bench wave on the predicted BVH, depth {DEPTH}, RR off, "
           f"tree batch {batch}): forward + backward + update {ms:.1f} ms by CUDA events, peak "
           f"memory {peak:.1f} MiB above {base / 2**20:.1f} MiB, {counts['bvh4_traverse']} "
-          f"launches = traversal calls; {jm} {secs()}", flush=True)
-    return launches + counts["bvh4_traverse"]
+          f"launches = traversal calls, {counts['material_grad']} material_grad launches; "
+          f"{jm} {secs()}", flush=True)
+    return launches + counts["bvh4_traverse"], counts["material_grad"]
 
 
 def untextured(sc):
@@ -2444,7 +2530,8 @@ def phase_dist(torch, sc, dbvh, cam, dev, batches, bench_pbrt: str,
     g = crown_grad.grad_check(bench_pbrt, res=64, device=dev, mat_id=0, rr_depth=99)
     counts = launch_counts()
     check(g["value"] < crown_grad.GATE and max(abs(x) for x in g["grad_fd"]) > 0
-          and counts.get("bvh4_traverse", 0) > 0 and set(counts) == {"bvh4_traverse"},
+          and counts.get("bvh4_traverse", 0) > 0
+          and set(counts) == {"bvh4_traverse", "material_grad"},
           f"22.7: crown_grad {g}, launches {counts}")
     total += counts["bvh4_traverse"]
     g_rr = crown_grad.grad_check(bench_pbrt, res=64, device=dev, mat_id=0)  # printed, not held
@@ -2492,7 +2579,7 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)")
     print(smi)
 
-    sources = ("bvh4_traverse", "binary_traverse", "bvh8_traverse", "kernel_lab")
+    sources = ("bvh4_traverse", "binary_traverse", "bvh8_traverse", "kernel_lab", "material_grad")
     t0 = time.perf_counter()
     kernels.build(*sources)
     for name in sources:
@@ -2503,6 +2590,7 @@ def main() -> int:
         for line in kernels.ptxas_lines(log):
             print(f"phase 2: {name}: {line}")
         check(kernels.spill_bytes(log) == 0, f"{name} spills: {kernels.ptxas_lines(log)}")
+    mg_row = phase_material_grad(torch, dev)
     lap("phases 1-2")
 
     t0 = time.perf_counter()
@@ -2570,7 +2658,8 @@ def main() -> int:
     lap("phase 16")
     out[0]["launches"] += phase_lights(torch, dev)
     lap("phase 17")
-    out[0]["launches"] += phase_learner(torch, sc, dbvh, cam, dev, ref_film)
+    launches, mg_row["launches"] = phase_learner(torch, sc, dbvh, cam, dev, ref_film)
+    out[0]["launches"] += launches
     lap("phase 18")
     with tempfile.TemporaryDirectory() as d:
         launches, paths = phase_scene_input(torch, dev, d)
@@ -2584,6 +2673,7 @@ def main() -> int:
         lap("phase 21")
         out[0]["launches"] += phase_dist(torch, sc, dbvh, cam, dev, batches, paths["bench"])
         lap("phase 22")
+    out.append(mg_row)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,7 @@ import torch
 
 from ..core import vecmath as vm, sampling, rgb2spec, spectrum
 from ..geometry import scene as scene_mod, texture
+from . import material_grad
 
 INV_PI = sampling.INV_PI
 
@@ -294,12 +295,13 @@ def gather_material(scene, mat_id, lam, mat_all=None, uv=None, u_mix=None,
     trilinear at the footprint foot_log2 (level 0 without it), and are made
     only when `kinds` holds their marker (MIX_TEXTURE, TEXTURED). Hair takes
     its fiber offset from uv's v. `kinds`: the scene's tags (scene_kinds),
-    read from the scene when not given."""
+    read from the scene when not given. The table's rows are read by
+    material_grad.gather, whose backward on CUDA is a segment-sum kernel."""
     if mat_all is None:
         mat_all = material_records(scene)
     if kinds is None:
         kinds = scene_kinds(scene)
-    rec = mat_all[torch.clamp(mat_id, min=0).long()]
+    rec = material_grad.gather(mat_all, mat_id)
     if has_mix(scene) and u_mix is not None:
         is_mix = rec[..., 0].to(torch.int32) == scene_mod.MAT_MIX
         amount = rec[..., 13]
@@ -313,7 +315,7 @@ def gather_material(scene, mat_id, lam, mat_all=None, uv=None, u_mix=None,
         resolved = torch.where(is_mix, torch.where(u_mix < amount,
                                                    rec[..., 12].to(torch.int32),
                                                    rec[..., 11].to(torch.int32)), mat_id)
-        rec = torch.where(is_mix[..., None], mat_all[torch.clamp(resolved, min=0).long()], rec)
+        rec = torch.where(is_mix[..., None], material_grad.gather(mat_all, resolved), rec)
     coeffs, scale = rec[..., 1:4], rec[..., 4:5]
     if TEXTURED in kinds and uv is not None:
         tex_id = rec[..., 10].to(torch.int32)

@@ -41,8 +41,9 @@ RENDER_COUNTERS = (
     "paths/terminated by RR",
     "paths/reached max depth",
 )
-# the dense batch's lanes, live or dead, per segment the wave runs
-COUNTERS = RENDER_COUNTERS + ("lanes/processed",)
+# the dense batch's lanes, live or dead, per segment the wave runs; the lanes
+# of the material gathers made with a graph (scatter/material_grad.py)
+COUNTERS = RENDER_COUNTERS + ("lanes/processed", "grad/material lanes")
 UNIT_FIELDS = ("image", "wave", "step", "rank")
 
 _NULL = contextlib.nullcontext()

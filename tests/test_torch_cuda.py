@@ -9,11 +9,15 @@ present (the CUDA kernel has no CPU mode). The kernel and its plain torch
 version round alike (-fmad=false), so hits and films must be identical.
 """
 
+import os
+import re
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
-from nn_bvh_tpu_torch import accel, devices
+from nn_bvh_tpu_torch import accel, devices, kernels
 from nn_bvh_tpu_torch.accel import (binary, binary_kernel, bvh4, bvh4_kernel, bvh8_kernel,
                                     dispatch, traverse)
 from nn_bvh_tpu_torch.accel.kernel_launch import n_launches
@@ -638,3 +642,111 @@ def test_treenet_step_on_card_matches_cpu():
     assert np.isfinite(l_card) and abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
     for a, b in zip(g_card, g_cpu):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+def _material_grads(R, M, C, seed):
+    """grad (R, C) and skewed int32 ids on the card: a tenth of the lanes
+    missed (-1), half on row 0, the rest spread over the M rows."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    grad = torch.randn(R, C, generator=gen, device="cuda")
+    u = torch.rand(R, generator=gen, device="cuda")
+    spread = torch.randint(0, M, (R,), generator=gen, device="cuda")
+    ids = torch.where(u < 0.1, -1, torch.where(u < 0.6, 0, spread))
+    return grad, ids.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,M,C", [(921_600, 3, 17), (100_003, 1, 17), (50_001, 150, 17),
+                                   (70_001, 5, 3), (20_001, 4, 200)],
+                         ids=["joint", "one_row", "row_tiles", "narrow", "wide"])
+def test_material_grad_matches_float64_segment_sum(R, M, C):
+    """The segment sum of csrc/material_grad.cu against index_add_ in
+    float64, at the joint_720p shape, one row, a table cut into row tiles
+    (150 rows of 17 columns: the accumulators hold 48), and other widths.
+    Tolerance: each entry is a tree of float32 adds (a thread's lanes, the
+    block's lane groups, the blocks), so it lies within (its longest chain)
+    x 2^-24 x the entry's absolute sum of the float64 value. Two calls are
+    bit-identical."""
+    _need_card()
+    from nn_bvh_tpu_torch.scatter import material_grad as mg
+
+    grad, ids = _material_grads(R, M, C, seed=R + M)
+    before = n_launches[mg.NAME]
+    got = mg.segment_sum(grad, ids, M)
+    assert n_launches[mg.NAME] == before + 2  # partial sums, then their sum
+    ref = mg.segment_sum_plain(grad, ids, M)
+    blocks = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    groups = 256 // C
+    chain = -(-R // blocks) // groups + 1 + groups + blocks
+    bound = chain * 2.0 ** -24 * mg.segment_sum_plain(grad.abs(), ids, M)
+    assert got.dtype == torch.float32 and got.shape == (M, C)
+    assert bool(((got.double() - ref).abs() <= bound).all())
+    assert torch.equal(got, mg.segment_sum(grad, ids, M))
+
+
+@pytest.mark.cuda
+def test_material_grad_has_no_atomic_instruction():
+    """No atomic or reduction instruction (ATOM, ATOMS, ATOMG, RED) in the
+    library's SASS (cuobjdump, beside nvcc)."""
+    _need_card()
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from nn_bvh_tpu_torch.scatter import material_grad as mg
+
+    mg.segment_sum(*_material_grads(1000, 3, 17, seed=1), 3)
+    sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+                           kernels.load(mg.NAME)._name], capture_output=True, text=True,
+                          check=True).stdout
+    assert "partial_sums" in sass
+    assert re.findall(r"\b(?:ATOM|ATOMS|ATOMG|RED)\.[A-Z0-9_.]+", sass) == []
+
+
+@pytest.mark.cuda
+def test_joint_step_gradients_match_the_plain_gather(monkeypatch):
+    """The joint_720p step's gradients (the bench scene at 1280x720, depth 4,
+    RR from 2, the full-width tree on 8 clouds) with the kernel's backward
+    against the same step with the material gather monkeypatched to the plain
+    gather, whose backward is aten's index_put_. The sums run in another
+    order, so the gradients differ by float32 rounding: the norms of the
+    tree's and of the coefficients' gradients within the cell's gradient-norm
+    limit (benchmark/workloads/joint_720p.json, 1.5e-4 relative), and each
+    coefficient's gradient within 1.5e-4 of their norm."""
+    _need_card()
+    from nn_bvh_tpu_torch.geometry import scene as scene_mod
+    from nn_bvh_tpu_torch.learn import joint, treenet
+    from nn_bvh_tpu_torch.scatter import lightsamplers, material_grad as mg
+
+    devices.full_float32()
+    dev = torch.device("cuda")
+    sc, dbvh, _ = bench_scene.build_bench_scene()
+    cam = camera.make_perspective(transform.look_at((0, 3.0, -9.0), (0, 1.0, 0), (0, 1, 0)),
+                                  fov=50.0, width=1280, height=720)
+    rcfg = integrator.IntegratorConfig(max_depth=4, mis=True, rr_depth=2)
+    tcfg = treenet.TreeNetConfig()
+    tsc = scene_mod.to_device(sc, dev)
+    lst = lightsamplers.build(tsc, rcfg.light_sampler, dev)
+    isect = dispatch.make_intersectors(sc, dbvh, dev)
+    pix = torch.arange(1280 * 720, dtype=torch.int32, device=dev)
+    clouds = torch.as_tensor(bench_scene.treenet_scene().next_batch(8), device=dev)
+    model = treenet.init_params(tcfg, seed=0, device=dev)
+    loss_fn = joint.make_joint_loss(tcfg, cam, samplers.make_sampler("sobol", seed=7, spp=16),
+                                    rcfg)
+
+    def grads():
+        mc = tsc.mat_coeffs.detach().clone().requires_grad_(True)
+        params = list(model.parameters())
+        loss, _ = loss_fn(joint.JointState(model, mc), tsc, None, lst, clouds, pix, 1, isect)
+        g = torch.autograd.grad(loss, params + [mc])
+        return torch.sqrt(sum((x.double() ** 2).sum() for x in g[:-1])), g[-1].double()
+
+    before = n_launches[mg.NAME]
+    tree_k, mat_k = grads()
+    assert n_launches[mg.NAME] - before == 8  # two a bounce
+    monkeypatch.setattr(mg, "gather", lambda t, i: t[torch.clamp(i, min=0).long()])
+    tree_p, mat_p = grads()
+    assert n_launches[mg.NAME] - before == 8
+    norm_p = float(mat_p.norm())
+    assert norm_p > 0 and float(tree_p) > 0
+    assert abs(float(mat_k.norm()) - norm_p) <= 1.5e-4 * norm_p
+    assert abs(float(tree_k) - float(tree_p)) <= 1.5e-4 * float(tree_p)
+    assert float((mat_k - mat_p).abs().max()) <= 1.5e-4 * norm_p
